@@ -1,0 +1,182 @@
+"""Build and ctypes binding of the CUDA kernels in ``csrc/``.
+
+The kernels are compiled with ``nvcc`` into one shared library with a
+plain C interface at their first launch, into
+``build/bayhunter_tpu_torch/`` under the repository root.  The
+library name carries a hash of the sources and flags, so an edited
+source rebuilds and an unchanged one loads the existing library.
+Nothing here runs at import time: importing this module needs no CUDA
+toolchain.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` turns a non-zero code into an
+exception.
+"""
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC_DIR = os.path.join(_PKG, 'csrc')
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), 'build',
+                         'bayhunter_tpu_torch')
+
+# --fmad=false keeps a*b+c unfused so the kernels round like their
+# plain twins: the walker's sign decisions and the RF branch cuts
+# depend on the last ulps (and --use_fast_math is never used)
+NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '--fmad=false',
+              '-Xptxas=-v']
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+class PackLayout(ctypes.Structure):
+    """``struct PackLayout`` of ``csrc/pack.cuh``: the RF pack's row
+    offsets, passed by value to K1 and K3 (see ``rf.pack_offsets``)."""
+    _fields_ = [(name, _I) for name in ('h', 'vp', 'vs', 'p', 't0', 'hmat',
+                                        'nt', 'depth', 'rows')]
+
+
+SIGNATURES = {
+    # K1: vs_t, z_t, n, vpvs | nl, C | layermin, layermax | vsmin,
+    # vsmax, zmin, zmax, thickmin, lvz_factor, hvz_factor | use_lvz,
+    # use_hvz | p, layout | valid, props, cm, bx, top, coefs, pack |
+    # stream
+    'bh_prep': [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
+                _F, _I, _I, _F, PackLayout, _P, _P, _P, _P, _P, _P, _P,
+                _P],
+    # K2: props, omegas, c_prev, cm, bx, top, slope_prev | nl, C, R,
+    # max_steps, nbisect, newton_iters, newton_maxshift, has_slope |
+    # c, found, slope | stream
+    'bh_walk': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                _I, _P, _P, _P, _P],
+    # K3: coefs, pack, layout | nl, C, F, nsamp | dw | czr, czi, crr,
+    # cri | stream
+    'bh_resp': [_P, _P, PackLayout, _I, _I, _I, _I, _F, _P, _P, _P, _P,
+                _P],
+}
+
+_lock = threading.Lock()
+
+
+class _Build:
+    lib = None
+    seconds = None
+    log = ''
+
+
+def nvcc_path():
+    home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
+    cand = os.path.join(home, 'bin', 'nvcc')
+    return cand if os.path.exists(cand) else shutil.which('nvcc')
+
+
+def sources():
+    return sorted(glob.glob(os.path.join(SRC_DIR, '*.cu'))
+                  + glob.glob(os.path.join(SRC_DIR, '*.cuh')))
+
+
+def library_path():
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for path in sources():
+        with open(path, 'rb') as f:
+            h.update(os.path.basename(path).encode() + f.read())
+    return os.path.join(BUILD_DIR, 'libbh_kernels_%s.so'
+                        % h.hexdigest()[:16])
+
+
+def load():
+    """The loaded kernel library, built on first use."""
+    with _lock:
+        if _Build.lib is None:
+            _Build.lib = _build_and_load()
+    return _Build.lib
+
+
+def _build_and_load():
+    out = library_path()
+    t0 = time.perf_counter()
+    if not os.path.exists(out):
+        nvcc = nvcc_path()
+        if nvcc is None:
+            raise RuntimeError('nvcc not found: the CUDA kernels of '
+                               'bayhunter_tpu_torch need the CUDA '
+                               'toolkit (set CUDA_HOME)')
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = '%s.%d.tmp' % (out, os.getpid())
+        cu = [s for s in sources() if s.endswith('.cu')]
+        r = subprocess.run([nvcc] + NVCC_FLAGS + ['-I', SRC_DIR, '-o',
+                                                  tmp] + cu,
+                           capture_output=True, text=True)
+        _Build.log = r.stdout + r.stderr
+        if r.returncode != 0:
+            raise RuntimeError('nvcc failed (rc=%d):\n%s'
+                               % (r.returncode, _Build.log[-6000:]))
+        with open(out + '.log', 'w') as f:
+            f.write(_Build.log)
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(out)
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.bh_error_string.argtypes = [ctypes.c_int]
+    lib.bh_error_string.restype = ctypes.c_char_p
+    _Build.seconds = time.perf_counter() - t0
+    return lib
+
+
+def build_info():
+    """(seconds the last build-and-load took, nvcc's output)."""
+    return _Build.seconds, _Build.log
+
+
+def check(rc, name):
+    if rc != 0:
+        msg = _Build.lib.bh_error_string(rc).decode()
+        raise RuntimeError('%s kernel launch failed: CUDA error %d (%s)'
+                           % (name, rc, msg))
+
+
+def pack_layout(offsets):
+    """The :class:`PackLayout` of an ``rf.pack_offsets`` dict."""
+    return PackLayout(**offsets)
+
+
+def ptr(t):
+    return ctypes.c_void_p(t.data_ptr()) if t is not None \
+        else ctypes.c_void_p(0)
+
+
+def stream(device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def require(t, name, device, dtype, shape):
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape``
+    on ``device``, a CUDA device."""
+    if device.type != 'cuda':
+        raise ValueError('%s is on %s: the kernels take CUDA tensors'
+                         % (name, device))
+    if t.device != device:
+        raise ValueError('%s is on %s, expected %s' % (name, t.device,
+                                                       device))
+    if t.dtype != dtype:
+        raise TypeError('%s has dtype %s, expected %s' % (name, t.dtype,
+                                                          dtype))
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError('%s has shape %s, expected %s'
+                         % (name, tuple(t.shape), tuple(shape)))
+    if not t.is_contiguous():
+        raise ValueError('%s must be contiguous' % name)

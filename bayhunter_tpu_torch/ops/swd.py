@@ -1,0 +1,363 @@
+"""Rayleigh-wave phase dispersion: plain secular function, cold root
+search and the warm-solve driver.
+
+Mirrors ``bayhunter_tpu/ops/swd.py``:
+
+  * ``gtsolh`` and the per-chain lower bound / maximum velocity
+    (``:299-316``, ``:950-966``);
+  * ``dltar4`` with ``_var_quantities`` / ``_dnka_apply``
+    (``:82-250``): the Dunkin compound-matrix recursion from the
+    halfspace up with per-layer max-abs renormalisation;
+  * the cold counting search ``_find_brackets_b`` (``:600-643``) and
+    ``_ksection_refine`` (``:518-587``; f32 phase solves: one pass of
+    KR = 15 interior points, then the closing secant) — the per-lane
+    semantics of the per-chain ``_find_brackets`` that cold init runs;
+  * ``warm_solve``: the walker branch of ``_roots_batch_impl``
+    (``:1011-1253``) on the model-kernel operands.
+
+Only fundamental-mode Rayleigh phase velocity on a flat earth is
+ported (the main path); Love, group velocity and spherical flattening
+are still to be ported.
+"""
+
+import numpy as np
+import torch
+
+from bayhunter_tpu_torch.ops import walk
+
+TWOPI = 2.0 * np.pi
+DDC = 0.005          # phase-velocity grid step (surfdisp96.f:126)
+CM_FACTOR = 0.95 * 0.90
+
+# cold counting search and refinement (ops/swd.py defaults)
+KBLOCK = 64
+NBLOCKS = 16
+KREFINE = 15
+
+
+def _var_quantities(pq, r, prop, dpth):
+    """Scaled cos/sin eigenfunction quantities of one wave type given
+    the propagation-regime mask (subroutine ``var``)."""
+    r_zero = r == 0.0
+    r_safe = torch.where(r_zero, torch.ones_like(r), r)
+    sin_p = torch.sin(pq)
+    w_prop = torch.where(r_zero, dpth, sin_p / r_safe)
+    x_prop = -r * sin_p
+    cos_prop = torch.cos(pq)
+    fac = torch.where(pq < 16.0, torch.exp(-2.0 * pq),
+                      torch.zeros_like(pq))
+    cos_ev = 0.5 * (1.0 + fac)
+    sin_ev = 0.5 * (1.0 - fac)
+    w_ev = torch.where(r_zero, dpth, sin_ev / r_safe)
+    x_ev = r * sin_ev
+    cos_ = torch.where(prop, cos_prop, cos_ev)
+    w_ = torch.where(prop, w_prop, w_ev)
+    x_ = torch.where(prop, x_prop, x_ev)
+    ex = torch.where(prop, torch.zeros_like(pq), pq)
+    return cos_, w_, x_, ex
+
+
+def _vertical(wvno, xk):
+    return torch.sqrt((wvno + xk) * torch.abs(wvno - xk))
+
+
+def _dnka_apply(e, wvno2, gam, gammk, rho, a0, cpcq, cpy, cpz, cqw,
+                cqx, xy, xz, wy, wz):
+    """e_new_j = sum_i e_i ca_ij with Dunkin's 5x5 compound matrix."""
+    gamm1 = gam - 1.0
+    twgm1 = gam + gamm1
+    gmgmk = gam * gammk
+    gmgm1 = gam * gamm1
+    gm1sq = gamm1 * gamm1
+    rho2 = rho * rho
+    a0pq = a0 - cpcq
+    ca11 = cpcq - 2.0 * gmgm1 * a0pq - gmgmk * xz - wvno2 * gm1sq * wy
+    ca12 = (wvno2 * cpy - cqx) / rho
+    ca13 = -(twgm1 * a0pq + gammk * xz + wvno2 * gamm1 * wy) / rho
+    ca14 = (cpz - wvno2 * cqw) / rho
+    ca15 = -(2.0 * wvno2 * a0pq + xz + wvno2 * wvno2 * wy) / rho2
+    ca21 = (gmgmk * cpz - gm1sq * cqw) * rho
+    ca22 = cpcq
+    ca23 = gammk * cpz - gamm1 * cqw
+    ca24 = -wz
+    ca25 = ca14
+    ca41 = (gm1sq * cpy - gmgmk * cqx) * rho
+    ca42 = -xy
+    ca43 = gamm1 * cpy - gammk * cqx
+    ca44 = ca22
+    ca45 = ca12
+    ca51 = -(2.0 * gmgmk * gm1sq * a0pq + gmgmk * gmgmk * xz
+             + gm1sq * gm1sq * wy) * rho2
+    ca52 = ca41
+    ca53 = -(gammk * gamm1 * twgm1 * a0pq + gam * gammk * gammk * xz
+             + gamm1 * gm1sq * wy) * rho
+    ca54 = ca21
+    ca55 = ca11
+    t = -2.0 * wvno2
+    ca31 = t * ca53
+    ca32 = t * ca43
+    ca33 = a0 + 2.0 * (cpcq - ca11)
+    ca34 = t * ca23
+    ca35 = t * ca13
+    e1, e2, e3, e4, e5 = e
+    return (e1 * ca11 + e2 * ca21 + e3 * ca31 + e4 * ca41 + e5 * ca51,
+            e1 * ca12 + e2 * ca22 + e3 * ca32 + e4 * ca42 + e5 * ca52,
+            e1 * ca13 + e2 * ca23 + e3 * ca33 + e4 * ca43 + e5 * ca53,
+            e1 * ca14 + e2 * ca24 + e3 * ca34 + e4 * ca44 + e5 * ca54,
+            e1 * ca15 + e2 * ca25 + e3 * ca35 + e4 * ca45 + e5 * ca55)
+
+
+def _halfspace(wvno, wvno2, omega, a_hs, b_hs, rho_hs):
+    """Halfspace E vector of the Dunkin recursion (surfdisp96.f:798-808)."""
+    ra = _vertical(wvno, omega / a_hs)
+    rb = _vertical(wvno, omega / b_hs)
+    t_hs = b_hs / omega
+    gammk = 2.0 * t_hs * t_hs
+    gam = gammk * wvno2
+    gamm1 = gam - 1.0
+    return (rho_hs * rho_hs * (gamm1 * gamm1 - gam * gammk * ra * rb),
+            -rho_hs * ra,
+            rho_hs * (gamm1 - gammk * ra * rb),
+            rho_hs * rb,
+            wvno2 - ra * rb)
+
+
+def dltar4(wvno, omega, d, a, b, rho):
+    """Rayleigh secular values at candidate wavenumbers.
+
+    ``wvno``/``omega``: (C, ...) candidate grids; ``d, a, b, rho``:
+    (C, NL) padded layer arrays with the halfspace last.  Every layer
+    slot NL-2..0 is applied (zero-thickness padding is an identity up
+    to a positive renormalisation); a surface water layer (b[0] <= 0)
+    is skipped in the recursion and closed by the water clause.
+    Returns values of the candidates' shape whose sign is the
+    reference's; the positive scale is arbitrary."""
+    omega = torch.clamp(omega, min=1.0e-4)
+    wvno, omega = torch.broadcast_tensors(wvno, omega)
+    wvno2 = wvno * wvno
+    extra = (1,) * (wvno.ndim - 1)
+    C, nl = d.shape
+
+    def col(x, i):
+        return x[:, i].reshape((C,) + extra)
+
+    water = col(b, 0) <= 0.0
+    e = _halfspace(wvno, wvno2, omega, col(a, nl - 1), col(b, nl - 1),
+                   col(rho, nl - 1))
+    for l in range(nl - 2, -1, -1):
+        d_l, a_l, b_l, rho_l = (col(x, l) for x in (d, a, b, rho))
+        xka = omega / a_l
+        xkb = omega / b_l
+        ra = _vertical(wvno, xka)
+        rb = _vertical(wvno, xkb)
+        t_l = b_l / omega
+        gammk = 2.0 * t_l * t_l
+        gam = gammk * wvno2
+        cosp, w, x, pex = _var_quantities(ra * d_l, ra, wvno < xka, d_l)
+        cosq, y, z, sex = _var_quantities(rb * d_l, rb, wvno < xkb, d_l)
+        exa = pex + sex
+        a0 = torch.where(exa < 60.0, torch.exp(-exa),
+                         torch.zeros_like(exa))
+        een = _dnka_apply(e, wvno2, gam, gammk, rho_l, a0,
+                          cosp * cosq, cosp * y, cosp * z, cosq * w,
+                          cosq * x, x * y, x * z, w * y, w * z)
+        nrm = torch.abs(een[0])
+        for comp in een[1:]:
+            nrm = torch.maximum(nrm, torch.abs(comp))
+        nrm = torch.where(nrm < 1e-40, torch.ones_like(nrm), nrm)
+        if l == 0:
+            e = tuple(torch.where(water, ec, en / nrm)
+                      for ec, en in zip(e, een))
+        else:
+            e = tuple(en / nrm for en in een)
+
+    xka0 = omega / col(a, 0)
+    ra0 = _vertical(wvno, xka0)
+    cosp_w, w_w, _, _ = _var_quantities(ra0 * col(d, 0), ra0,
+                                        wvno < xka0, col(d, 0))
+    w0 = -col(rho, 0) * w_w
+    return torch.where(water, cosp_w * e[0] + w0 * e[1], e[0])
+
+
+def gtsolh(a, b):
+    """Halfspace Rayleigh-velocity starting solution: 5 Newton steps
+    on the halfspace period equation (surfdisp96.f:367-388)."""
+    c = 0.95 * b
+    for _ in range(5):
+        gamma = b / a
+        kappa = c / b
+        k2 = kappa * kappa
+        gk = gamma * kappa
+        gk2 = gk * gk
+        fac1 = torch.sqrt(torch.clamp(1.0 - gk2, min=1e-30))
+        fac2 = torch.sqrt(torch.clamp(1.0 - k2, min=1e-30))
+        tk = 2.0 - k2
+        fr = tk * tk - 4.0 * fac1 * fac2
+        frp = (-4.0 * tk * kappa
+               + 4.0 * fac2 * gamma * gamma * kappa / fac1
+               + 4.0 * fac1 * kappa / fac2)
+        frp = frp / b
+        c = c - fr / frp
+    return c
+
+
+def lower_bound(a, b, dim):
+    """(cm, betmx) along layer axis ``dim``: cm = 0.95 * 0.90 *
+    gtsolh at the slowest layer (its velocity if fluid), betmx the
+    largest S velocity (surfdisp96.f:140-217)."""
+    solid = b > 0.01
+    cand = torch.where(solid, b, a)
+    jmn = torch.argmin(cand, dim=dim, keepdim=True)
+    betmn = torch.gather(cand, dim, jmn).squeeze(dim)
+    a_mn = torch.gather(a, dim, jmn).squeeze(dim)
+    b_mn = torch.gather(b, dim, jmn).squeeze(dim)
+    jsol = torch.gather(solid, dim, jmn).squeeze(dim)
+    cc1 = torch.where(jsol, gtsolh(a_mn, b_mn), betmn)
+    return CM_FACTOR * cc1, torch.amax(b, dim=dim)
+
+
+def _find_brackets_b(omega, cm, betmx, secular, K, nblocks):
+    """Counting search: walk blocks of K grid points (step DDC) up
+    from cm; the first sign change brackets the fundamental mode.  omega
+    (C, R), cm/betmx (C, 1).  Returns (lo, found), each (C, R)."""
+    dtype, dev = omega.dtype, omega.device
+    dc = torch.tensor(DDC, dtype=dtype, device=dev)
+    koff = torch.arange(1, K + 1, dtype=dtype, device=dev) * dc
+    sign0 = secular(omega / cm, omega) > 0
+    P = omega.shape
+    prev_sign = sign0
+    cnt = torch.zeros(P, dtype=torch.int64, device=dev)
+    found = torch.zeros(P, dtype=torch.bool, device=dev)
+    lo = cm.expand(P).clone()
+    limit = betmx + dc
+    for j in range(nblocks):
+        base = cm + torch.tensor(j * K, dtype=dtype, device=dev) * dc
+        if bool((found | (base > limit)).all()):
+            break
+        c = base[..., None] + koff                        # (C, 1, K)
+        valid = c <= limit[..., None]
+        sg = secular(omega[..., None] / c, omega[..., None]) > 0
+        allsg = torch.cat([prev_sign[..., None], sg], dim=-1)
+        flips = (allsg[..., 1:] != allsg[..., :-1]) & valid
+        cum = cnt[..., None] + torch.cumsum(flips.to(torch.int64), -1)
+        hit = (cum == 1) & flips
+        has_hit = hit.any(dim=-1)
+        idx = torch.argmax(hit.to(torch.int8), dim=-1)
+        lo_new = base + idx.to(dtype) * dc
+        newly = has_hit & ~found
+        lo = torch.where(newly, lo_new, lo)
+        found = found | newly
+        cnt = cum[..., -1]
+        prev_sign = sg[..., -1]
+    return lo, found
+
+
+def _ksection_refine(omega, lo, secular, KR, niter):
+    """Narrow the (lo, lo + DDC) bracket by (KR+1)^niter, then one
+    secant step on the final bracket's values, with the smaller-|f|
+    endpoint where the secant leaves the bracket.  Returns
+    (root, slope), the slope being the final bracket's secant."""
+    dc = torch.tensor(DDC, dtype=omega.dtype, device=omega.device)
+    hi = lo + dc
+    fracs = (torch.arange(0, KR + 2, dtype=omega.dtype,
+                          device=omega.device)
+             / (KR + 1))
+    f_lo = f_hi = torch.zeros_like(lo)
+    for _ in range(niter):
+        pts = lo[..., None] + (hi - lo)[..., None] * fracs
+        vals = secular(omega[..., None] / pts, omega[..., None])
+        s_lo = vals[..., 0] > 0
+        diff = (vals[..., 1:] > 0) != s_lo[..., None]
+        idx = torch.argmax(diff.to(torch.int8), dim=-1)
+        idx = torch.where(diff.any(dim=-1), idx, torch.full_like(idx, KR))
+        ix = idx[..., None]
+        hi = torch.gather(pts[..., 1:], -1, ix)[..., 0]
+        f_hi = torch.gather(vals[..., 1:], -1, ix)[..., 0]
+        lo = torch.gather(pts[..., :-1], -1, ix)[..., 0]
+        f_lo = torch.gather(vals[..., :-1], -1, ix)[..., 0]
+    return secant_close(lo, hi, f_lo, f_hi)
+
+
+def secant_close(lo, hi, f_lo, f_hi):
+    """Closing secant on a bracket's values (smaller-|f| endpoint when
+    it leaves the bracket) and the bracket's slope."""
+    one = torch.ones_like(lo)
+    denom = f_hi - f_lo
+    denom = torch.where(denom == 0.0, one, denom)
+    c = lo - f_lo * (hi - lo) / denom
+    edge = torch.where(torch.abs(f_lo) <= torch.abs(f_hi), lo, hi)
+    good = (c > lo) & (c < hi) & torch.isfinite(c)
+    width = hi - lo
+    slope = (f_hi - f_lo) / torch.where(width == 0.0, one, width)
+    return torch.where(good, c, edge), slope
+
+
+def _finish(c, found):
+    """(cg, err): zero-fill from the first failed period on
+    (surfdisp96.f:313-354); err when any period failed."""
+    failed_cum = torch.cumsum((~found).to(torch.int32), dim=-1) > 0
+    cg = torch.where(failed_cum, torch.zeros_like(c), c)
+    return cg, (~found).any(dim=-1)
+
+
+def surfdisp_roots_cold(h, vp, vs, rho, periods):
+    """Cold fundamental-mode Rayleigh phase solve of a row-major
+    (C, NL) batch: counting search from cm, then refinement (one pass
+    in float32, three in float64 as the reference).
+
+    Returns (cg (C, P), err (C,), roots (C, P), slopes (C, P)); the
+    slope of an unfound lane is the 0.0 no-cache sentinel."""
+    dtype = h.dtype
+    niter = 1 if dtype == torch.float32 else 3
+    cm, betmx = lower_bound(vp, vs, dim=-1)
+    cm, betmx = cm[:, None], betmx[:, None]
+    omegas = angular_frequencies(periods, h.device, dtype).expand(
+        h.shape[0], -1)
+
+    def secular(wvno, omega):
+        return dltar4(wvno, omega, h, vp, vs, rho)
+
+    lo, found = _find_brackets_b(omegas, cm, betmx, secular, KBLOCK,
+                                 NBLOCKS)
+    c, slope = _ksection_refine(omegas, lo, secular, KREFINE, niter)
+    slope = torch.where(found, slope, torch.zeros_like(slope))
+    cg, err = _finish(c, found)
+    return cg, err, c, slope
+
+
+# warm-solve settings per move class (ops/swd.py:1068-1195 with the
+# sampler's ring widths, chain.py:432-496): Newton iterations, ring
+# width, walk bisections, and whether the cached slope seeds the first
+# Newton pass
+WARM_VS = dict(newton_iters=1, ring=2, nbisect=0, cached_slope=True)
+WARM_Z = dict(newton_iters=0, ring=8, nbisect=1, cached_slope=False)
+WARM_DIM = dict(newton_iters=2, ring=1, nbisect=0, cached_slope=False)
+WARM_CAP = 2                                   # evaluator.py:111
+NEWTON_MAXSHIFT = 3.0 * 64 * DDC
+
+
+def angular_frequencies(periods, device, dtype=torch.float32):
+    """2 pi / T as a tensor on ``device``."""
+    t = torch.as_tensor(np.asarray(periods), dtype=dtype, device=device)
+    return torch.full_like(t, TWOPI) / t
+
+
+def warm_solve(props, cm, bx, top, omegas, c_prev, settings,
+               slope_prev=None):
+    """Warm Rayleigh phase solve on the model-kernel operands (the
+    walker branch of ``_roots_batch_impl``).
+
+    ``props`` (4 NL, C) walker planes [d; a; b; rho]; ``cm``/``bx``/
+    ``top`` (C,); ``omegas`` (P,) angular frequencies;
+    ``c_prev``/``slope_prev`` (C, P) from the forward cache;
+    ``settings`` one of WARM_VS / WARM_Z / WARM_DIM.  The walk makes at
+    most 2 ring trips (the warm cap).  Returns (cg, err, roots, slopes)
+    as :func:`surfdisp_roots_cold`."""
+    sl = slope_prev if settings['cached_slope'] else None
+    c, found, slope = walk.warm_roots_walk(
+        props, omegas, c_prev, cm, bx, top, ring_k=settings['ring'],
+        trips=WARM_CAP, nbisect=settings['nbisect'],
+        newton_iters=settings['newton_iters'],
+        newton_maxshift=NEWTON_MAXSHIFT, slope_prev=sl)
+    cg, err = _finish(c, found)
+    return cg, err, c, slope
