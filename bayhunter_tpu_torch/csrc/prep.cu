@@ -1,10 +1,16 @@
-// K1: the model kernel, one thread per chain.
+// K1: the model kernel, and K6: its RF part alone; one thread per chain.
 //
 // Replaces the TPU kernel bayhunter_tpu/ops/pallas_prep.py:315
 // (_model_kernel with _voronoi_rows :173, _valid_rows :210,
 // _swd_rows :255 and _rf_rows :63, driven by model_operands_t :340)
 // for one flat-earth Rayleigh target and one receiver-function target.
 // Plain twin: bayhunter_tpu_torch/ops/prep.py model_operands_plain.
+//
+// K6 replaces the TPU kernel bayhunter_tpu/ops/pallas_prep.py:141
+// (_prep_kernel, body _rf_rows :63, driven by rf_operands_t :436): the
+// same RF rows (rf_rows below, shared with K1) from (NL, C) layer
+// planes, for the cold evaluation.  Plain twin: ops/prep.py
+// rf_operands_plain.
 //
 // From the depth-sorted (NL, C) nucleus planes it computes the layered
 // model, the prior validity, the walker planes [d; a; b; rho], cm (0.95
@@ -15,7 +21,8 @@
 // addresses.
 //
 // Bound on the card: stores — 84 + 640 + 88 + 4 floats written per
-// chain against 42 read, with a few thousand flops per chain.  The
+// chain against 42 read (K6: 640 + 88 written against 84 read), with a
+// few thousand flops per chain.  The
 // per-chain layer arrays live in local memory (L1-resident).  Left for
 // later work: fusing the operand packs into their consumers so that
 // the 640-row coefficient table never reaches device memory.
@@ -46,6 +53,74 @@ __device__ __forceinline__ float gtsolh(float a, float b) {
         c = c - fr / frp;
     }
     return c;
+}
+
+// RF operands of one chain from its layer arrays (pallas_prep._rf_rows,
+// P incidence): rfmini flattening (R = 6371 km) in place, the
+// (NL-1) x 32 welded-interface R/T table and the per-chain pack (rows
+// named by pack.cuh's PackLayout).  Shared by K1 and K6.
+__device__ __forceinline__ void rf_rows(int nl, int C, int c, float p,
+                                        const PackLayout &lay, float *h,
+                                        float *vp, float *vsl, float *rho,
+                                        float *__restrict__ coefs,
+                                        float *__restrict__ pack) {
+    const float R = 6371.0f;
+    float zt = 0.0f;
+    for (int i = 0; i < nl; ++i) {
+        float z_bot = zt + h[i];
+        float q_top = R / (R - zt);
+        float zf_top = R * logf(q_top);
+        float zf_bot = R * logf(R / (R - z_bot));
+        zt = zt + h[i];
+        h[i] = zf_bot - zf_top;
+        vp[i] = vp[i] * q_top;
+        vsl[i] = vsl[i] * q_top;
+        rho[i] = rho[i] / q_top;
+    }
+    m4 mats[4];
+    int depth = 0;
+    for (int l = 0; l < nl - 1; ++l) {
+        interface_coeffs(p, vp[l], vsl[l], rho[l], vp[l + 1], vsl[l + 1],
+                         rho[l + 1], mats);
+        float *out = coefs + (size_t)l * 32 * C + c;
+        for (int m = 0; m < 4; ++m) {
+            const cf *e = &mats[m].a11;
+            for (int k = 0; k < 4; ++k) {
+                out[(size_t)(m * 8 + 2 * k) * C] = e[k].re;
+                out[(size_t)(m * 8 + 2 * k + 1) * C] = e[k].im;
+            }
+        }
+        bool real = h[l] > 0.0f || vp[l] != vp[l + 1] || vsl[l] != vsl[l + 1]
+                    || rho[l] != rho[l + 1];
+        if (real) depth = l;
+    }
+    float t0 = 0.0f;
+    for (int i = 0; i < nl; ++i) {
+        float qv = sqrtf(fmaxf(1.0f / (vp[i] * vp[i]) - p * p, 0.0f));
+        t0 = t0 + (i < nl - 1 ? h[i] : -1.0f) * qv;
+    }
+    m4 hm = displacement(p, vp[0], vsl[0]);
+    m4 nt = free_surface(p, vp[0], vsl[0]);
+
+    float *pk = pack + c;
+    auto put = [&](int row, float v) { pk[(size_t)row * C] = v; };
+    for (int i = 0; i < nl; ++i) {
+        put(lay.h + i, h[i]);
+        put(lay.vp + i, vp[i]);
+        put(lay.vs + i, vsl[i]);
+    }
+    put(lay.p, p);
+    put(lay.t0, t0);
+    const cf *hmv = &hm.a11;
+    const cf *ntv = &nt.a11;
+    for (int k = 0; k < 4; ++k) {
+        put(lay.hmat + 2 * k, hmv[k].re);
+        put(lay.hmat + 2 * k + 1, hmv[k].im);
+        put(lay.nt + 2 * k, ntv[k].re);
+        put(lay.nt + 2 * k + 1, ntv[k].im);
+    }
+    put(lay.depth, (float)depth);
+    for (int row = lay.depth + 1; row < lay.rows; ++row) put(row, 0.0f);
 }
 
 struct PriorCfg {
@@ -134,64 +209,28 @@ __global__ void prep_kernel(const float *__restrict__ vs_t,
     bx_out[c] = bx;
     top_out[c] = (float)top;
 
-    // RF operands: rfmini flattening (pallas_prep._rf_rows)
-    const float R = 6371.0f;
-    float zt = 0.0f;
-    for (int i = 0; i < nl; ++i) {
-        float z_bot = zt + h[i];
-        float q_top = R / (R - zt);
-        float zf_top = R * logf(q_top);
-        float zf_bot = R * logf(R / (R - z_bot));
-        zt = zt + h[i];
-        h[i] = zf_bot - zf_top;
-        vp[i] = vp[i] * q_top;
-        vsl[i] = vsl[i] * q_top;
-        rho[i] = rho[i] / q_top;
-    }
-    m4 mats[4];
-    int depth = 0;
-    for (int l = 0; l < nl - 1; ++l) {
-        interface_coeffs(p, vp[l], vsl[l], rho[l], vp[l + 1], vsl[l + 1],
-                         rho[l + 1], mats);
-        float *out = coefs + (size_t)l * 32 * C + c;
-        for (int m = 0; m < 4; ++m) {
-            const cf *e = &mats[m].a11;
-            for (int k = 0; k < 4; ++k) {
-                out[(size_t)(m * 8 + 2 * k) * C] = e[k].re;
-                out[(size_t)(m * 8 + 2 * k + 1) * C] = e[k].im;
-            }
-        }
-        bool real = h[l] > 0.0f || vp[l] != vp[l + 1] || vsl[l] != vsl[l + 1]
-                    || rho[l] != rho[l + 1];
-        if (real) depth = l;
-    }
-    float t0 = 0.0f;
-    for (int i = 0; i < nl; ++i) {
-        float qv = sqrtf(fmaxf(1.0f / (vp[i] * vp[i]) - p * p, 0.0f));
-        t0 = t0 + (i < nl - 1 ? h[i] : -1.0f) * qv;
-    }
-    m4 hm = displacement(p, vp[0], vsl[0]);
-    m4 nt = free_surface(p, vp[0], vsl[0]);
+    rf_rows(nl, C, c, p, lay, h, vp, vsl, rho, coefs, pack);
+}
 
-    float *pk = pack + c;
-    auto put = [&](int row, float v) { pk[(size_t)row * C] = v; };
+// K6: the RF operands alone, from (NL, C) layer planes.
+__global__ void rf_prep_kernel(const float *__restrict__ h_in,
+                               const float *__restrict__ vp_in,
+                               const float *__restrict__ vs_in,
+                               const float *__restrict__ rho_in, int nl,
+                               int C, float p, PackLayout lay,
+                               float *__restrict__ coefs,
+                               float *__restrict__ pack) {
+    int c = blockIdx.x * blockDim.x + threadIdx.x;
+    if (c >= C) return;
+    float h[NL_MAX], vp[NL_MAX], vsl[NL_MAX], rho[NL_MAX];
     for (int i = 0; i < nl; ++i) {
-        put(lay.h + i, h[i]);
-        put(lay.vp + i, vp[i]);
-        put(lay.vs + i, vsl[i]);
+        size_t k = (size_t)i * C + c;
+        h[i] = h_in[k];
+        vp[i] = vp_in[k];
+        vsl[i] = vs_in[k];
+        rho[i] = rho_in[k];
     }
-    put(lay.p, p);
-    put(lay.t0, t0);
-    const cf *hmv = &hm.a11;
-    const cf *ntv = &nt.a11;
-    for (int k = 0; k < 4; ++k) {
-        put(lay.hmat + 2 * k, hmv[k].re);
-        put(lay.hmat + 2 * k + 1, hmv[k].im);
-        put(lay.nt + 2 * k, ntv[k].re);
-        put(lay.nt + 2 * k + 1, ntv[k].im);
-    }
-    put(lay.depth, (float)depth);
-    for (int row = lay.depth + 1; row < lay.rows; ++row) put(row, 0.0f);
+    rf_rows(nl, C, c, p, lay, h, vp, vsl, rho, coefs, pack);
 }
 
 }  // namespace
@@ -213,6 +252,19 @@ extern "C" int bh_prep(const float *vs_t, const float *z_t, const int *n,
     prep_kernel<<<blocks, threads, 0, stream>>>(
         vs_t, z_t, n, vpvs, nl, C, cfg, p, lay, valid, props, cm, bx, top,
         coefs, pack);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int bh_rf_prep(const float *h, const float *vp, const float *vs,
+                          const float *rho, int nl, int C, float p,
+                          PackLayout lay, float *coefs, float *pack,
+                          cudaStream_t stream) {
+    if (nl > NL_MAX || nl < 2) return (int)cudaErrorInvalidValue;
+    if (C == 0) return 0;
+    int threads = 128;
+    int blocks = (C + threads - 1) / threads;
+    rf_prep_kernel<<<blocks, threads, 0, stream>>>(h, vp, vs, rho, nl, C, p,
+                                                   lay, coefs, pack);
     return (int)cudaGetLastError();
 }
 

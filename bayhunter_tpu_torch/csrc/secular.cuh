@@ -1,10 +1,16 @@
-// Rayleigh secular function of one (wavenumber, frequency) candidate:
-// the Dunkin 5-vector compound-matrix recursion from the halfspace up
-// with per-layer max-abs renormalisation, and the water-surface clause
-// (bayhunter_tpu/ops/pallas_secular.py _dltar4_halfspace /
-// _dltar4_layer_math, ops/pallas_walk.py secular; reference
-// surfdisp96.f:773-1068).  Same operation order as the plain twin
-// (bayhunter_tpu_torch/ops/walk.py secular_plain).
+// Secular (period-equation) functions of one (wavenumber, frequency)
+// candidate, from the halfspace up with per-layer max-abs
+// renormalisation (reference surfdisp96.f:710-1068):
+//
+//   * Rayleigh: the Dunkin 5-vector compound-matrix recursion and the
+//     water-surface clause (bayhunter_tpu/ops/pallas_secular.py
+//     _dltar4_halfspace / _dltar4_layer_math);
+//   * Love: the Haskell SH 2-vector recursion (_dltar1_layer_math and
+//     the halfspace start of _dltar1_kernel); a surface water layer is
+//     skipped.
+//
+// Shared by K2 (walk.cu) and K4/K5 (secular.cu).  Same operation order
+// as the plain twins (bayhunter_tpu_torch/ops/swd.py secular_plain).
 #pragma once
 
 struct evec {
@@ -139,3 +145,92 @@ static __device__ __forceinline__ evec dltar4_layer(
     out.e5 = n5 * inv;
     return out;
 }
+
+struct evec2 {
+    float e1, e2;
+};
+
+static __device__ __forceinline__ evec2 dltar1_halfspace(
+        float wvno, float omega, float b_hs, float rho_hs) {
+    evec2 e;
+    e.e1 = rho_hs * vertical(wvno, omega / b_hs);
+    e.e2 = 1.0f / (b_hs * b_hs);
+    return e;
+}
+
+static __device__ __forceinline__ evec2 dltar1_layer(
+        const evec2 &e, float wvno, float omega, float d_l, float b_l,
+        float rho_l) {
+    float b_safe = b_l <= 0.0f ? 1.0f : b_l;
+    float xkb = omega / b_safe;
+    float rb = vertical(wvno, xkb);
+    float xmu = rho_l * b_safe * b_safe;
+    varq S = var_quantities(rb * d_l, rb, wvno < xkb, d_l);
+    float e10 = e.e1 * S.cos_ + e.e2 * xmu * S.x;
+    float e20 = e.e1 * S.w / xmu + e.e2 * S.cos_;
+    float nrm = fmaxf(fabsf(e10), fabsf(e20));
+    if (nrm < 1e-40f) nrm = 1.0f;
+    evec2 out;
+    out.e1 = e10 / nrm;
+    out.e2 = e20 / nrm;
+    return out;
+}
+
+// One chain's padded layer columns (halfspace in slot nl - 1): slot l
+// of a property p is p[off + l * stride], so one struct serves the
+// (NL, C) planes of the walker and the (C, NL) rows of K4/K5.  Slots
+// above ``top`` (the deepest with thickness) are zero-thickness
+// copies of the halfspace, identities up to a positive scale, and are
+// not applied.
+struct ChainLayers {
+    const float *__restrict__ d;
+    const float *__restrict__ a;   // unused by Love
+    const float *__restrict__ b;
+    const float *__restrict__ rho;
+    size_t off;
+    size_t stride;
+    int nl;
+    int top;
+    bool water;
+
+    __device__ float at(const float *__restrict__ p, int l) const {
+        return __ldg(p + off + (size_t)l * stride);
+    }
+
+    // deepest slot 0..nl-2 with d > 0, -1 for a pure halfspace
+    __device__ int deepest() const {
+        for (int l = nl - 2; l >= 0; --l)
+            if (at(d, l) > 0.0f) return l;
+        return -1;
+    }
+
+    // IWAVE 1 = Love, 2 = Rayleigh (a template parameter, so that each
+    // kernel holds one recursion); omega already clamped to >= 1e-4
+    template <int IWAVE>
+    __device__ float secular(float wvno, float omega) const {
+        if constexpr (IWAVE == 1) {
+            evec2 e = dltar1_halfspace(wvno, omega, at(b, nl - 1),
+                                       at(rho, nl - 1));
+            for (int l = top; l >= 0; --l) {
+                if (l == 0 && water) break;
+                e = dltar1_layer(e, wvno, omega, at(d, l), at(b, l),
+                                 at(rho, l));
+            }
+            return e.e1;
+        }
+        float wvno2 = wvno * wvno;
+        evec e = dltar4_halfspace(wvno, wvno2, omega, at(a, nl - 1),
+                                  at(b, nl - 1), at(rho, nl - 1));
+        for (int l = top; l >= 0; --l) {
+            if (l == 0 && water) break;
+            e = dltar4_layer(e, wvno, wvno2, omega, at(d, l), at(a, l),
+                             at(b, l), at(rho, l));
+        }
+        float a0 = at(a, 0);
+        float d0 = at(d, 0);
+        float xka0 = omega / a0;
+        float ra0 = vertical(wvno, xka0);
+        varq w = var_quantities(ra0 * d0, ra0, wvno < xka0, d0);
+        return water ? w.cos_ * e.e1 - at(rho, 0) * w.w * e.e2 : e.e1;
+    }
+};

@@ -1,4 +1,5 @@
-// K2: warm Rayleigh root walker, one thread per (chain, period) lane.
+// K2: warm root walker, Rayleigh or Love, one thread per (chain, period)
+// lane.
 //
 // Replaces the TPU kernel bayhunter_tpu/ops/pallas_walk.py:71
 // (_walk_kernel, driven by warm_roots_walk :396).  Plain twin:
@@ -10,11 +11,16 @@
 // bracket nbisect times and closes with a secant; it exits as soon as
 // it has found its root or died (the TPU kernel's block-wide exit gives
 // the same per-lane result).  Each chain uses its own deepest layer
-// ``top``.
+// ``top``.  Both wave types read the model kernel's Rayleigh planes
+// [d; a; b; rho]: on a flat earth Love's [d; b; rho] are planes 0, 2
+// and 3 of that stack (pallas_prep._swd_rows builds the same d, b and
+// rho for both), and so are cm, betmx and top.  A spherical-earth Love
+// target would need its own density plane (exponent -5 against the
+// Rayleigh -2.275, pallas_prep.py:285).
 //
 // Bound on the card: transcendental arithmetic — every secular
-// evaluation runs sqrt/sin/cos/exp and ~150 flops per layer, a few to
-// ~40 evaluations per lane; operands are a few hundred bytes per chain,
+// evaluation runs sqrt/sin/cos/exp and ~150 flops per layer (Love: one
+// sqrt, sin/cos or exp and ~25 flops), a few to ~40 evaluations per lane; operands are a few hundred bytes per chain,
 // read through the read-only cache.  Left for later work: lanes of one
 // warp diverge in their walk length (threads of a finished lane idle
 // until the warp's slowest lane ends), layer planes are re-read from
@@ -26,44 +32,11 @@
 
 namespace {
 
-struct Layers {
-    const float *__restrict__ d;
-    const float *__restrict__ a;
-    const float *__restrict__ b;
-    const float *__restrict__ rho;
-    int C;
-    int nl;
-    int c;
-    int top;
-    bool water;
-
-    __device__ float at(const float *__restrict__ p, int l) const {
-        return __ldg(p + (size_t)l * C + c);
-    }
-
-    __device__ float secular(float cand, float omega) const {
-        float wvno = omega / cand;
-        float wvno2 = wvno * wvno;
-        evec e = dltar4_halfspace(wvno, wvno2, omega, at(a, nl - 1),
-                                  at(b, nl - 1), at(rho, nl - 1));
-        for (int l = top; l >= 0; --l) {
-            if (l == 0 && water) break;
-            e = dltar4_layer(e, wvno, wvno2, omega, at(d, l), at(a, l),
-                             at(b, l), at(rho, l));
-        }
-        float a0 = at(a, 0);
-        float d0 = at(d, 0);
-        float xka0 = omega / a0;
-        float ra0 = vertical(wvno, xka0);
-        varq w = var_quantities(ra0 * d0, ra0, wvno < xka0, d0);
-        return water ? w.cos_ * e.e1 - at(rho, 0) * w.w * e.e2 : e.e1;
-    }
-};
-
 __device__ __forceinline__ float clipf(float x, float lo, float hi) {
     return fminf(fmaxf(x, lo), hi);
 }
 
+template <int IWAVE>
 __global__ void walk_kernel(const float *__restrict__ props,
                             const float *__restrict__ omegas,
                             const float *__restrict__ c_prev,
@@ -81,14 +54,14 @@ __global__ void walk_kernel(const float *__restrict__ props,
     int c = (int)(lane / R);
     int r = (int)(lane % R);
 
-    Layers L;
-    L.C = C;
-    L.nl = nl;
-    L.c = c;
+    ChainLayers L;
     L.d = props;
     L.a = props + (size_t)nl * C;
     L.b = props + (size_t)2 * nl * C;
     L.rho = props + (size_t)3 * nl * C;
+    L.off = c;
+    L.stride = C;
+    L.nl = nl;
     L.top = min((int)top_in[c], nl - 2);
     L.water = L.at(L.b, 0) <= 0.0f;
 
@@ -98,9 +71,12 @@ __global__ void walk_kernel(const float *__restrict__ props,
     float cm = cm_in[c];
     float bx = bx_in[c];
     float c0 = clipf(c_prev[lane], cm, bx);
+    auto sec = [&](float cand) {
+        return L.secular<IWAVE>(omega / cand, omega);
+    };
 
     if (newton_iters > 0) {
-        float v0 = L.secular(c0, omega);
+        float v0 = sec(c0);
         float hasf, slope;
         if (has_slope) {
             float sl = slope_prev[lane];
@@ -108,14 +84,14 @@ __global__ void walk_kernel(const float *__restrict__ props,
             slope = hasf > 0.5f ? sl : 1.0f;
         } else {
             hasf = 1.0f;
-            slope = (L.secular(c0 + eps, omega) - v0) / eps;
+            slope = (sec(c0 + eps) - v0) / eps;
             if (slope == 0.0f) slope = 1.0f;
         }
         float shift = clipf(-v0 / slope, -maxshift, maxshift) * hasf;
         float c_pv = c0, v_pv = v0;
         c0 = clipf(c0 + shift, cm, bx);
         for (int it = 1; it < newton_iters; ++it) {
-            v0 = L.secular(c0, omega);
+            v0 = sec(c0);
             float step = c0 - c_pv;
             float sec = (v0 - v_pv) / (step == 0.0f ? 1.0f : step);
             if (fabsf(step) > eps) slope = sec;
@@ -127,7 +103,7 @@ __global__ void walk_kernel(const float *__restrict__ props,
         }
     }
 
-    float f0 = L.secular(c0, omega);
+    float f0 = sec(c0);
     bool s_r = f0 > 0.0f, s_l = s_r;
     float f_r = f0, f_l = f0;
     bool found = false;
@@ -137,7 +113,7 @@ __global__ void walk_kernel(const float *__restrict__ props,
         bool right = (t % 2) == 0;
         float cand = right ? c0 + k : c0 - k;
         bool valid = right ? cand <= bx + dc : cand >= cm;
-        float f = L.secular(cand, omega);
+        float f = sec(cand);
         bool s = f > 0.0f;
         bool s_prev = right ? s_r : s_l;
         float f_prev = right ? f_r : f_l;
@@ -163,7 +139,7 @@ __global__ void walk_kernel(const float *__restrict__ props,
     if (found) {
         for (int i = 0; i < nbisect; ++i) {
             float mid = 0.5f * (lo + hi);
-            float fm = L.secular(mid, omega);
+            float fm = sec(mid);
             if ((fm > 0.0f) == (f_lo > 0.0f)) {
                 lo = mid;
                 f_lo = fm;
@@ -192,15 +168,22 @@ extern "C" int bh_walk(const float *props, const float *omegas,
                        const float *top, const float *slope_prev, int nl,
                        int C, int R, int max_steps, int nbisect,
                        int newton_iters, float maxshift, int has_slope,
-                       float *c_out, bool *found_out, float *slope_out,
-                       cudaStream_t stream) {
+                       int iwave, float *c_out, bool *found_out,
+                       float *slope_out, cudaStream_t stream) {
+    if (iwave != 1 && iwave != 2) return (int)cudaErrorInvalidValue;
     long n = (long)C * R;
     if (n == 0) return 0;
     int threads = 128;
     int blocks = (int)((n + threads - 1) / threads);
-    walk_kernel<<<blocks, threads, 0, stream>>>(
-        props, omegas, c_prev, cm, bx, top, slope_prev, nl, C, R, max_steps,
-        nbisect, newton_iters, maxshift, has_slope, c_out, found_out,
-        slope_out);
+    if (iwave == 1)
+        walk_kernel<1><<<blocks, threads, 0, stream>>>(
+            props, omegas, c_prev, cm, bx, top, slope_prev, nl, C, R,
+            max_steps, nbisect, newton_iters, maxshift, has_slope, c_out,
+            found_out, slope_out);
+    else
+        walk_kernel<2><<<blocks, threads, 0, stream>>>(
+            props, omegas, c_prev, cm, bx, top, slope_prev, nl, C, R,
+            max_steps, nbisect, newton_iters, maxshift, has_slope, c_out,
+            found_out, slope_out);
     return (int)cudaGetLastError();
 }

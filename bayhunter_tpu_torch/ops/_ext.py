@@ -2,7 +2,8 @@
 
 The kernels are compiled with ``nvcc`` into one shared library with a
 plain C interface at their first launch, into
-``build/bayhunter_tpu_torch/`` under the repository root.  The
+``build/bayhunter_tpu_torch/`` under the repository root: one ``nvcc``
+process per source, all started together, then one link.  The
 library name carries a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one loads the existing library.
 Nothing here runs at import time: importing this module needs no CUDA
@@ -33,8 +34,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), 'build',
 # plain twins: the walker's sign decisions and the RF branch cuts
 # depend on the last ulps (and --use_fast_math is never used)
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '--fmad=false',
-              '-Xptxas=-v']
+              '-O3', '-Xcompiler', '-fPIC', '--fmad=false', '-Xptxas=-v']
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,14 +57,20 @@ SIGNATURES = {
                 _F, _I, _I, _F, PackLayout, _P, _P, _P, _P, _P, _P, _P,
                 _P],
     # K2: props, omegas, c_prev, cm, bx, top, slope_prev | nl, C, R,
-    # max_steps, nbisect, newton_iters, newton_maxshift, has_slope |
-    # c, found, slope | stream
+    # max_steps, nbisect, newton_iters, newton_maxshift, has_slope,
+    # iwave | c, found, slope | stream
     'bh_walk': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                _I, _P, _P, _P, _P],
+                _I, _I, _P, _P, _P, _P],
     # K3: coefs, pack, layout | nl, C, F, nsamp | dw | czr, czi, crr,
     # cri | stream
     'bh_resp': [_P, _P, PackLayout, _I, _I, _I, _I, _F, _P, _P, _P, _P,
                 _P],
+    # K4: wvno, omega, d, a, b, rho | nl, C, L | out | stream
+    'bh_secular4': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # K5: wvno, omega, d, b, rho | nl, C, L | out | stream
+    'bh_secular1': [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # K6: h, vp, vs, rho | nl, C | p, layout | coefs, pack | stream
+    'bh_rf_prep': [_P, _P, _P, _P, _I, _I, _F, PackLayout, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -114,18 +120,33 @@ def _build_and_load():
                                'bayhunter_tpu_torch need the CUDA '
                                'toolkit (set CUDA_HOME)')
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = '%s.%d.tmp' % (out, os.getpid())
+        tmp = '%s.%d' % (out, os.getpid())
         cu = [s for s in sources() if s.endswith('.cu')]
-        r = subprocess.run([nvcc] + NVCC_FLAGS + ['-I', SRC_DIR, '-o',
-                                                  tmp] + cu,
-                           capture_output=True, text=True)
-        _Build.log = r.stdout + r.stderr
-        if r.returncode != 0:
-            raise RuntimeError('nvcc failed (rc=%d):\n%s'
-                               % (r.returncode, _Build.log[-6000:]))
+        objs = ['%s.%s.o' % (tmp, os.path.basename(s)[:-3]) for s in cu]
+        procs = [subprocess.Popen([nvcc] + NVCC_FLAGS + ['-I', SRC_DIR, '-c',
+                                                        '-o', o, s],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(cu, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        _Build.log = ''.join(logs)
+        failed = [s for s, p in zip(cu, procs) if p.returncode != 0]
+        if not failed:
+            r = subprocess.run([nvcc, '-shared', '-o', tmp + '.so'] + objs,
+                               capture_output=True, text=True)
+            _Build.log += r.stdout + r.stderr
+            if r.returncode != 0:
+                failed = ['link']
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+        if failed:
+            raise RuntimeError('nvcc failed (%s):\n%s'
+                               % (', '.join(map(os.path.basename, failed)),
+                                  _Build.log[-6000:]))
         with open(out + '.log', 'w') as f:
             f.write(_Build.log)
-        os.replace(tmp, out)
+        os.replace(tmp + '.so', out)
     lib = ctypes.CDLL(out)
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

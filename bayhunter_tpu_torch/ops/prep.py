@@ -1,4 +1,5 @@
-"""K1: the model kernel — CUDA kernel and plain twin.
+"""K1: the model kernel, and K6: its RF operands alone — CUDA kernels
+and plain twins.
 
 Mirrors ``bayhunter_tpu/ops/pallas_prep.py`` (``_model_kernel``,
 ``model_operands_t``) for the main path's target pair: one flat-earth
@@ -13,6 +14,10 @@ From depth-sorted (NL, C) nucleus planes it computes, per chain:
     table (row l*32 + m*8 + e*2 + c for matrix m in (rd, td, ru, tu),
     entry e in (11, 12, 21, 22), re/im c) and the per-chain pack
     (rows named by ``rf.pack_offsets``).
+
+K6 (``rf_operands``) computes the last item from (NL, C) layer planes
+for the cold evaluation, as ``pallas_prep.rf_operands_t`` does; both
+kernels share its device code (``csrc/prep.cu`` ``rf_rows``).
 """
 
 import typing
@@ -68,8 +73,7 @@ def model_operands_plain(vs_t, z_t, n, vpvs, priors, p):
 
 
 def rf_operands_plain(h, vp, vs, rho, p):
-    """The RF operands (coefs, pack) of (NL, C) layer planes: rfmini
-    flattening, interface tables, per-chain pack for P incidence."""
+    """Plain twin of :func:`rf_operands` (same arguments/results)."""
     nl, C = h.shape
     dt, dev = h.dtype, h.device
     idx = torch.arange(nl, device=dev, dtype=dt)[:, None]
@@ -139,3 +143,32 @@ def model_operands(vs_t, z_t, n, vpvs, priors, p):
 
 
 model_operands.launches = 0
+
+
+def rf_operands(h, vp, vs, rho, p):
+    """The RF operands (coefs, pack) of (NL, C) layer planes: rfmini
+    flattening, the ((NL-1)*32, C) interface tables and the per-chain
+    pack for P incidence at slowness ``p`` (s/km).  CPU tensors run the
+    plain twin; CUDA tensors launch K6."""
+    if h.device.type == 'cpu':
+        return rf_operands_plain(h, vp, vs, rho, p)
+    dev = h.device
+    nl, C = h.shape
+    f32 = torch.float32
+    for name, x in (('h', h), ('vp', vp), ('vs', vs), ('rho', rho)):
+        _ext.require(x, name, dev, f32, (nl, C))
+    off = _rf.pack_offsets(nl)
+    coefs = torch.empty(((nl - 1) * 32, C), dtype=f32, device=dev)
+    pack = torch.empty((off['rows'], C), dtype=f32, device=dev)
+    lib = _ext.load()
+    with torch.cuda.device(dev):
+        rc = lib.bh_rf_prep(
+            _ext.ptr(h), _ext.ptr(vp), _ext.ptr(vs), _ext.ptr(rho), nl, C,
+            float(p), _ext.pack_layout(off), _ext.ptr(coefs), _ext.ptr(pack),
+            _ext.stream(dev))
+    _ext.check(rc, 'rf_prep')
+    rf_operands.launches += 1
+    return coefs, pack
+
+
+rf_operands.launches = 0

@@ -3,9 +3,9 @@ plain twin.
 
 Mirrors ``bayhunter_tpu/ops/pallas_rf.py`` ``_resp_kernel`` in packed
 mode (driver ``_resp_packed_t``): one lane per (chain, frequency <
-cut), P incidence, uniform Q, operands from the model kernel.  The plain twin is
-``ops/rf.py`` :func:`transmission_response`, which the cold init
-also runs.
+cut), P incidence, uniform Q, operands from the model kernel (warm
+steps, the Gauss-cut lanes) or from K6 (cold evaluation, all nsamp/2 + 1
+lanes).  The plain twin is ``ops/rf.py`` :func:`transmission_response`.
 """
 
 import numpy as np

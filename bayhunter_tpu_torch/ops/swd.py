@@ -1,5 +1,5 @@
-"""Rayleigh-wave phase dispersion: plain secular function, cold root
-search and the warm-solve driver.
+"""Rayleigh- and Love-wave phase dispersion: secular functions (plain
+twins and kernels K4/K5), cold root search and the warm-solve driver.
 
 Mirrors ``bayhunter_tpu/ops/swd.py``:
 
@@ -7,7 +7,12 @@ Mirrors ``bayhunter_tpu/ops/swd.py``:
     (``:299-316``, ``:950-966``);
   * ``dltar4`` with ``_var_quantities`` / ``_dnka_apply``
     (``:82-250``): the Dunkin compound-matrix recursion from the
-    halfspace up with per-layer max-abs renormalisation;
+    halfspace up with per-layer max-abs renormalisation, and ``dltar1``
+    (``:253-292``), the Love SH 2-vector recursion, with the layer math
+    of ``pallas_secular.py`` (reciprocal renormalisation for Rayleigh,
+    ``omega`` clamped to 1e-4); the kernels ``secular4`` (K4,
+    ``csrc/secular.cu``, replacing ``pallas_secular._dltar4_kernel``)
+    and ``secular1`` (K5, ``_dltar1_kernel``);
   * the cold counting search ``_find_brackets_b`` (``:600-643``) and
     ``_ksection_refine`` (``:518-587``; f32 phase solves: one pass of
     KR = 15 interior points, then the closing secant) — the per-lane
@@ -15,14 +20,17 @@ Mirrors ``bayhunter_tpu/ops/swd.py``:
   * ``warm_solve``: the walker branch of ``_roots_batch_impl``
     (``:1011-1253``) on the model-kernel operands.
 
-Only fundamental-mode Rayleigh phase velocity on a flat earth is
-ported (the main path); Love, group velocity and spherical flattening
-are still to be ported.
+Fundamental-mode Rayleigh and Love phase velocity on a flat earth are
+ported; group velocity, higher modes and spherical flattening are
+still to be ported.  Love's cold bracket starts from the same cm as
+Rayleigh's, the Rayleigh halfspace ``gtsolh`` of the slowest layer
+(reference ``:1286-1295``).
 """
 
 import numpy as np
 import torch
 
+from bayhunter_tpu_torch.ops import _ext
 from bayhunter_tpu_torch.ops import walk
 
 TWOPI = 2.0 * np.pi
@@ -122,19 +130,75 @@ def _halfspace(wvno, wvno2, omega, a_hs, b_hs, rho_hs):
             wvno2 - ra * rb)
 
 
-def dltar4(wvno, omega, d, a, b, rho):
-    """Rayleigh secular values at candidate wavenumbers.
+def _dltar4_layer(e, wvno, wvno2, omega, d_l, a_l, b_l, rho_l):
+    """One Dunkin layer update, renormalised by its max-abs entry
+    (``pallas_secular._dltar4_layer_math``)."""
+    xka = omega / a_l
+    xkb = omega / b_l
+    ra = _vertical(wvno, xka)
+    rb = _vertical(wvno, xkb)
+    t_l = b_l / omega
+    gammk = 2.0 * t_l * t_l
+    gam = gammk * wvno2
+    cosp, w, x, pex = _var_quantities(ra * d_l, ra, wvno < xka, d_l)
+    cosq, y, z, sex = _var_quantities(rb * d_l, rb, wvno < xkb, d_l)
+    exa = pex + sex
+    a0 = torch.where(exa < 60.0, torch.exp(-exa), torch.zeros_like(exa))
+    n = _dnka_apply(e, wvno2, gam, gammk, rho_l, a0, cosp * cosq,
+                    cosp * y, cosp * z, cosq * w, cosq * x, x * y, x * z,
+                    w * y, w * z)
+    a = [torch.abs(v) for v in n]
+    nrm = torch.maximum(torch.maximum(a[0], a[1]),
+                        torch.maximum(torch.maximum(a[2], a[3]), a[4]))
+    nrm = torch.where(nrm < 1e-40, torch.ones_like(nrm), nrm)
+    inv = 1.0 / nrm
+    return tuple(v * inv for v in n)
+
+
+def _dltar1_halfspace(wvno, omega, b_hs, rho_hs):
+    """Halfspace start of the Love recursion: (rho rb, 1/beta^2)."""
+    e2 = 1.0 / (b_hs * b_hs)
+    return rho_hs * _vertical(wvno, omega / b_hs), e2.expand_as(wvno)
+
+
+def _dltar1_layer(e, wvno, omega, d_l, b_l, rho_l):
+    """One Haskell SH layer update, renormalised by its max-abs entry
+    (``pallas_secular._dltar1_layer_math``: S terms only)."""
+    b_safe = torch.where(b_l <= 0.0, torch.ones_like(b_l), b_l)
+    xkb = omega / b_safe
+    rb = _vertical(wvno, xkb)
+    xmu = rho_l * b_safe * b_safe
+    cosq, y, z, _ = _var_quantities(rb * d_l, rb, wvno < xkb, d_l)
+    e10 = e[0] * cosq + e[1] * xmu * z
+    e20 = e[0] * y / xmu + e[1] * cosq
+    nrm = torch.maximum(torch.abs(e10), torch.abs(e20))
+    nrm = torch.where(nrm < 1e-40, torch.ones_like(nrm), nrm)
+    return e10 / nrm, e20 / nrm
+
+
+def layer_top(d):
+    """(C,) deepest slot 0..NL-2 of (C, NL) thicknesses with d > 0,
+    -1 for a pure halfspace."""
+    nl = d.shape[1]
+    idx = torch.arange(nl - 1, device=d.device)
+    return torch.amax(torch.where(d[:, :nl - 1] > 0.0, idx,
+                                  torch.full_like(idx, -1)), dim=1)
+
+
+def secular_plain(wvno, omega, d, a, b, rho, top, iwave):
+    """Secular values at candidate wavenumbers — the plain twin of
+    kernels K4/K5 and of K2's secular function.
 
     ``wvno``/``omega``: (C, ...) candidate grids; ``d, a, b, rho``:
-    (C, NL) padded layer arrays with the halfspace last.  Every layer
-    slot NL-2..0 is applied (zero-thickness padding is an identity up
-    to a positive renormalisation); a surface water layer (b[0] <= 0)
-    is skipped in the recursion and closed by the water clause.
-    Returns values of the candidates' shape whose sign is the
-    reference's; the positive scale is arbitrary."""
+    (C, NL) padded layer arrays with the halfspace last (``a`` unused
+    for Love); ``top`` (C,) the deepest slot applied (slots above it
+    are zero-thickness copies of the halfspace, identities up to a
+    positive scale); ``iwave`` 1 Love, 2 Rayleigh.  A surface water
+    layer (b[0] <= 0) is skipped in the recursion; Rayleigh closes it
+    with the water clause.  Returns values of the candidates' shape
+    whose sign is the reference's; the positive scale is arbitrary."""
     omega = torch.clamp(omega, min=1.0e-4)
     wvno, omega = torch.broadcast_tensors(wvno, omega)
-    wvno2 = wvno * wvno
     extra = (1,) * (wvno.ndim - 1)
     C, nl = d.shape
 
@@ -142,41 +206,105 @@ def dltar4(wvno, omega, d, a, b, rho):
         return x[:, i].reshape((C,) + extra)
 
     water = col(b, 0) <= 0.0
-    e = _halfspace(wvno, wvno2, omega, col(a, nl - 1), col(b, nl - 1),
-                   col(rho, nl - 1))
-    for l in range(nl - 2, -1, -1):
-        d_l, a_l, b_l, rho_l = (col(x, l) for x in (d, a, b, rho))
-        xka = omega / a_l
-        xkb = omega / b_l
-        ra = _vertical(wvno, xka)
-        rb = _vertical(wvno, xkb)
-        t_l = b_l / omega
-        gammk = 2.0 * t_l * t_l
-        gam = gammk * wvno2
-        cosp, w, x, pex = _var_quantities(ra * d_l, ra, wvno < xka, d_l)
-        cosq, y, z, sex = _var_quantities(rb * d_l, rb, wvno < xkb, d_l)
-        exa = pex + sex
-        a0 = torch.where(exa < 60.0, torch.exp(-exa),
-                         torch.zeros_like(exa))
-        een = _dnka_apply(e, wvno2, gam, gammk, rho_l, a0,
-                          cosp * cosq, cosp * y, cosp * z, cosq * w,
-                          cosq * x, x * y, x * z, w * y, w * z)
-        nrm = torch.abs(een[0])
-        for comp in een[1:]:
-            nrm = torch.maximum(nrm, torch.abs(comp))
-        nrm = torch.where(nrm < 1e-40, torch.ones_like(nrm), nrm)
-        if l == 0:
-            e = tuple(torch.where(water, ec, en / nrm)
-                      for ec, en in zip(e, een))
+    top = top.reshape((C,) + extra)
+    if iwave == 1:
+        e = _dltar1_halfspace(wvno, omega, col(b, nl - 1), col(rho, nl - 1))
+    else:
+        wvno2 = wvno * wvno
+        e = _halfspace(wvno, wvno2, omega, col(a, nl - 1), col(b, nl - 1),
+                       col(rho, nl - 1))
+    deepest = int(top.max()) if top.numel() else -1
+    for l in range(deepest, -1, -1):
+        if iwave == 1:
+            new = _dltar1_layer(e, wvno, omega, col(d, l), col(b, l),
+                                col(rho, l))
         else:
-            e = tuple(en / nrm for en in een)
-
+            new = _dltar4_layer(e, wvno, wvno2, omega, col(d, l), col(a, l),
+                                col(b, l), col(rho, l))
+        keep = top < l
+        if l == 0:
+            keep = keep | water
+        e = tuple(torch.where(keep, eo, en) for eo, en in zip(e, new))
+    if iwave == 1:
+        return e[0]
     xka0 = omega / col(a, 0)
     ra0 = _vertical(wvno, xka0)
-    cosp_w, w_w, _, _ = _var_quantities(ra0 * col(d, 0), ra0,
-                                        wvno < xka0, col(d, 0))
-    w0 = -col(rho, 0) * w_w
-    return torch.where(water, cosp_w * e[0] + w0 * e[1], e[0])
+    cosp_w, w_w, _, _ = _var_quantities(ra0 * col(d, 0), ra0, wvno < xka0,
+                                        col(d, 0))
+    return torch.where(water, cosp_w * e[0] - col(rho, 0) * w_w * e[1],
+                       e[0])
+
+
+def dltar4(wvno, omega, d, a, b, rho):
+    """Rayleigh secular values (Dunkin recursion; the plain twin of K4)
+    of (C, NL) layer arrays at (C, ...) candidates."""
+    return secular_plain(wvno, omega, d, a, b, rho, layer_top(d), 2)
+
+
+def dltar1(wvno, omega, d, b, rho):
+    """Love secular values (Haskell SH recursion; the plain twin of K5,
+    port of ``bayhunter_tpu/ops/swd.py`` ``dltar1``) of (C, NL) layer
+    arrays at (C, ...) candidates."""
+    return secular_plain(wvno, omega, d, None, b, rho, layer_top(d), 1)
+
+
+def _launch_secular(name, wvno, omega, layers):
+    """(C, ...) values of K4 (``bh_secular4``) or K5 (``bh_secular1``)
+    on CUDA tensors; ``layers`` the (C, NL) arrays the kernel takes."""
+    dev = wvno.device
+    f32 = torch.float32
+    wvno, omega = torch.broadcast_tensors(wvno, omega)
+    shape = wvno.shape
+    C, nl = layers[0].shape
+    wv = wvno.reshape(C, -1).contiguous()
+    om = omega.reshape(C, -1).contiguous()
+    L = wv.shape[1]
+    _ext.require(wv, 'wvno', dev, f32, (C, L))
+    _ext.require(om, 'omega', dev, f32, (C, L))
+    for i, x in enumerate(layers):
+        _ext.require(x, 'layer array %d' % i, dev, f32, (C, nl))
+    out = torch.empty((C, L), dtype=f32, device=dev)
+    lib = _ext.load()
+    with torch.cuda.device(dev):
+        rc = getattr(lib, name)(
+            _ext.ptr(wv), _ext.ptr(om), *(_ext.ptr(x) for x in layers), nl,
+            C, L, _ext.ptr(out), _ext.stream(dev))
+    _ext.check(rc, name)
+    return out.reshape(shape)
+
+
+def secular4(wvno, omega, d, a, b, rho):
+    """K4: Rayleigh secular values of (C, NL) layer arrays at (C, ...)
+    candidates.  CPU tensors run the plain twin :func:`dltar4`; CUDA
+    tensors launch the kernel."""
+    if wvno.device.type == 'cpu':
+        return dltar4(wvno, omega, d, a, b, rho)
+    out = _launch_secular('bh_secular4', wvno, omega, (d, a, b, rho))
+    secular4.launches += 1
+    return out
+
+
+def secular1(wvno, omega, d, b, rho):
+    """K5: Love secular values of (C, NL) layer arrays at (C, ...)
+    candidates.  CPU tensors run the plain twin :func:`dltar1`; CUDA
+    tensors launch the kernel."""
+    if wvno.device.type == 'cpu':
+        return dltar1(wvno, omega, d, b, rho)
+    out = _launch_secular('bh_secular1', wvno, omega, (d, b, rho))
+    secular1.launches += 1
+    return out
+
+
+secular4.launches = 0
+secular1.launches = 0
+
+
+def secular_values(wvno, omega, d, a, b, rho, iwave):
+    """Secular values of wave type ``iwave`` (1 Love: K5, 2 Rayleigh:
+    K4) of (C, NL) layer arrays at (C, ...) candidates."""
+    if iwave == 1:
+        return secular1(wvno, omega, d, b, rho)
+    return secular4(wvno, omega, d, a, b, rho)
 
 
 def gtsolh(a, b):
@@ -300,10 +428,11 @@ def _finish(c, found):
     return cg, (~found).any(dim=-1)
 
 
-def surfdisp_roots_cold(h, vp, vs, rho, periods):
-    """Cold fundamental-mode Rayleigh phase solve of a row-major
-    (C, NL) batch: counting search from cm, then refinement (one pass
-    in float32, three in float64 as the reference).
+def surfdisp_roots_cold(h, vp, vs, rho, periods, iwave=2):
+    """Cold fundamental-mode phase solve (``iwave`` 1 Love, 2
+    Rayleigh) of a row-major (C, NL) batch: counting search from cm,
+    then refinement (one pass in float32, three in float64 as the
+    reference), every secular evaluation through K4 or K5.
 
     Returns (cg (C, P), err (C,), roots (C, P), slopes (C, P)); the
     slope of an unfound lane is the 0.0 no-cache sentinel."""
@@ -315,7 +444,7 @@ def surfdisp_roots_cold(h, vp, vs, rho, periods):
         h.shape[0], -1)
 
     def secular(wvno, omega):
-        return dltar4(wvno, omega, h, vp, vs, rho)
+        return secular_values(wvno, omega, h, vp, vs, rho, iwave)
 
     lo, found = _find_brackets_b(omegas, cm, betmx, secular, KBLOCK,
                                  NBLOCKS)
@@ -343,9 +472,9 @@ def angular_frequencies(periods, device, dtype=torch.float32):
 
 
 def warm_solve(props, cm, bx, top, omegas, c_prev, settings,
-               slope_prev=None):
-    """Warm Rayleigh phase solve on the model-kernel operands (the
-    walker branch of ``_roots_batch_impl``).
+               slope_prev=None, iwave=2):
+    """Warm phase solve (``iwave`` 1 Love, 2 Rayleigh) on the
+    model-kernel operands (the walker branch of ``_roots_batch_impl``).
 
     ``props`` (4 NL, C) walker planes [d; a; b; rho]; ``cm``/``bx``/
     ``top`` (C,); ``omegas`` (P,) angular frequencies;
@@ -358,6 +487,6 @@ def warm_solve(props, cm, bx, top, omegas, c_prev, settings,
         props, omegas, c_prev, cm, bx, top, ring_k=settings['ring'],
         trips=WARM_CAP, nbisect=settings['nbisect'],
         newton_iters=settings['newton_iters'],
-        newton_maxshift=NEWTON_MAXSHIFT, slope_prev=sl)
+        newton_maxshift=NEWTON_MAXSHIFT, slope_prev=sl, iwave=iwave)
     cg, err = _finish(c, found)
     return cg, err, c, slope

@@ -1,4 +1,5 @@
-"""K2: the warm Rayleigh root walker — CUDA kernel and plain twin.
+"""K2: the warm root walker, Rayleigh and Love — CUDA kernel and plain
+twin.
 
 Mirrors ``bayhunter_tpu/ops/pallas_walk.py`` (``_walk_kernel``,
 ``warm_roots_walk``) on the transposed-layout path with the model
@@ -17,11 +18,17 @@ kernel's stacked planes.  One lane per (chain, period):
      with the smaller-|f| endpoint fallback; the bracket's slope is
      returned as the next solve's cache (0.0 where unfound).
 
-The secular function is the Dunkin recursion of
-``pallas_secular._dltar4_layer_math`` from each chain's own deepest
-layer ``top`` up (the JAX kernel uses its tile's maximum; the skipped
-identity layers change values only by a positive scale, so signs and
-found flags do not change), plus the water-surface clause.
+The secular function (``swd.secular_plain``) is the Dunkin recursion
+of ``pallas_secular._dltar4_layer_math`` plus the water-surface clause
+for Rayleigh (``iwave`` 2), the Haskell SH recursion of
+``_dltar1_layer_math`` for Love (``iwave`` 1), from each chain's own
+deepest layer ``top`` up (the JAX kernel uses its tile's maximum; the
+skipped identity layers change values only by a positive scale, so
+signs and found flags do not change).  Both read the model kernel's
+Rayleigh planes: on a flat earth Love's [d; b; rho] are planes 0, 2 and
+3 of that stack, and cm, betmx and top are the same for both.  A
+spherical-earth Love target would need its own density plane (exponent
+-5 against -2.275, ``pallas_prep.py:285``).
 """
 
 import torch
@@ -30,71 +37,26 @@ from bayhunter_tpu_torch.ops import _ext
 from bayhunter_tpu_torch.ops import swd as _swd
 
 
-def _layer(e, wvno, wvno2, omega, d_l, a_l, b_l, rho_l):
-    """One Dunkin layer update, renormalised by its max-abs entry."""
-    xka = omega / a_l
-    xkb = omega / b_l
-    ra = _swd._vertical(wvno, xka)
-    rb = _swd._vertical(wvno, xkb)
-    t_l = b_l / omega
-    gammk = 2.0 * t_l * t_l
-    gam = gammk * wvno2
-    cosp, w, x, pex = _swd._var_quantities(ra * d_l, ra, wvno < xka, d_l)
-    cosq, y, z, sex = _swd._var_quantities(rb * d_l, rb, wvno < xkb, d_l)
-    exa = pex + sex
-    a0 = torch.where(exa < 60.0, torch.exp(-exa), torch.zeros_like(exa))
-    n = _swd._dnka_apply(e, wvno2, gam, gammk, rho_l, a0, cosp * cosq,
-                         cosp * y, cosp * z, cosq * w, cosq * x, x * y,
-                         x * z, w * y, w * z)
-    a = [torch.abs(v) for v in n]
-    nrm = torch.maximum(torch.maximum(a[0], a[1]),
-                        torch.maximum(torch.maximum(a[2], a[3]), a[4]))
-    nrm = torch.where(nrm < 1e-40, torch.ones_like(nrm), nrm)
-    inv = 1.0 / nrm
-    return tuple(v * inv for v in n)
-
-
-def secular_plain(c, omega, props, top):
-    """Secular values at (C, R) candidates ``c``; ``props`` (4 NL, C)
-    planes [d; a; b; rho]; ``top`` (C,) deepest active layer."""
-    nl = props.shape[0] // 4
-    d, a, b, rho = (props[k * nl:(k + 1) * nl].T[:, :, None]
-                    for k in range(4))                  # (C, NL, 1)
-    top = torch.clamp(top.to(torch.int64), max=nl - 2)[:, None]
-    wvno = omega / c
-    wvno2 = wvno * wvno
-    water = b[:, 0] <= 0.0
-    e = _swd._halfspace(wvno, wvno2, omega, a[:, nl - 1], b[:, nl - 1],
-                        rho[:, nl - 1])
-    for l in range(int(top.max().item()) if top.numel() else -1, -1, -1):
-        new = _layer(e, wvno, wvno2, omega, d[:, l], a[:, l], b[:, l],
-                     rho[:, l])
-        keep = top < l
-        if l == 0:
-            keep = keep | water
-        e = tuple(torch.where(keep, eo, en) for eo, en in zip(e, new))
-    xka0 = omega / a[:, 0]
-    ra0 = _swd._vertical(wvno, xka0)
-    cosp_w, w_w, _, _ = _swd._var_quantities(ra0 * d[:, 0], ra0,
-                                             wvno < xka0, d[:, 0])
-    return torch.where(water, cosp_w * e[0] - rho[:, 0] * w_w * e[1],
-                       e[0])
-
-
 def warm_roots_walk_plain(props, omegas, c_prev, cm, bx, top, ring_k,
                           trips, nbisect, newton_iters, newton_maxshift,
-                          slope_prev=None):
+                          slope_prev=None, iwave=2):
     """Plain PyTorch twin of the walker kernel (same arguments and
-    results as :func:`warm_roots_walk`)."""
+    results as :func:`warm_roots_walk`).  Leaves the number of secular
+    evaluations the kernel makes for each lane, (C, R) int32, in
+    ``warm_roots_walk_plain.evaluations`` (the work a bound on the
+    kernel's time counts)."""
     dc = torch.tensor(_swd.DDC, dtype=torch.float32, device=props.device)
     eps = dc / 16.0
     ms = float(newton_maxshift)
     cm = cm[:, None]
     bx = bx[:, None]
     omega = torch.clamp(omegas, min=1.0e-4)[None, :].expand_as(c_prev)
+    nl = props.shape[0] // 4
+    layers = tuple(props[k * nl:(k + 1) * nl].T for k in range(4))
+    top_l = torch.clamp(top.to(torch.int64), max=nl - 2)
 
     def sec(c):
-        return secular_plain(c, omega, props, top)
+        return _swd.secular_plain(omega / c, omega, *layers, top_l, iwave)
 
     def clip(x):
         return torch.minimum(torch.maximum(x, cm), bx)
@@ -124,6 +86,9 @@ def warm_roots_walk_plain(props, omegas, c_prev, cm, bx, top, ring_k,
             c0 = clip(c0 + shift)
 
     f0 = sec(c0)
+    prepass = newton_iters + int(slope_prev is None) if newton_iters else 0
+    evals = torch.full(c_prev.shape, prepass + 1, dtype=torch.int32,
+                       device=c_prev.device)
     s_r = s_l = f0 > 0
     f_r = f_l = f0
     found = torch.zeros_like(s_r)
@@ -143,6 +108,7 @@ def warm_roots_walk_plain(props, omegas, c_prev, cm, bx, top, ring_k,
             cand = c0 - k
             valid = cand >= cm
         f = sec(cand)
+        evals += (~(found | dead)).to(torch.int32)
         s = f > 0
         s_prev, f_prev = (s_r, f_r) if right else (s_l, f_l)
         flip = (s != s_prev) & valid & ~found & ~dead
@@ -168,14 +134,17 @@ def warm_roots_walk_plain(props, omegas, c_prev, cm, bx, top, ring_k,
         f_lo = torch.where(up_lo, fm, f_lo)
         hi = torch.where(up_hi, mid, hi)
         f_hi = torch.where(up_hi, fm, f_hi)
+    evals += nbisect * found.to(torch.int32)
+    warm_roots_walk_plain.evaluations = evals
     c, slope = _swd.secant_close(lo, hi, f_lo, f_hi)
     return c, found, torch.where(found, slope, torch.zeros_like(slope))
 
 
 def warm_roots_walk(props, omegas, c_prev, cm, bx, top, ring_k, trips,
                     nbisect, newton_iters, newton_maxshift,
-                    slope_prev=None):
-    """Warm root solve of every (chain, period) lane.
+                    slope_prev=None, iwave=2):
+    """Warm root solve of every (chain, period) lane, ``iwave`` 1 Love
+    or 2 Rayleigh.
 
     ``props`` (4 NL, C) walker planes [d; a; b; rho] and ``cm``/``bx``/
     ``top`` (C,) from the model kernel; ``omegas`` (R,) angular
@@ -186,7 +155,7 @@ def warm_roots_walk(props, omegas, c_prev, cm, bx, top, ring_k, trips,
         return warm_roots_walk_plain(props, omegas, c_prev, cm, bx, top,
                                      ring_k, trips, nbisect,
                                      newton_iters, newton_maxshift,
-                                     slope_prev)
+                                     slope_prev, iwave)
     dev = props.device
     C, R = c_prev.shape
     nl = props.shape[0] // 4
@@ -208,11 +177,15 @@ def warm_roots_walk(props, omegas, c_prev, cm, bx, top, ring_k, trips,
             _ext.ptr(cm), _ext.ptr(bx), _ext.ptr(top),
             _ext.ptr(slope_prev), nl, C, R, 2 * ring_k * trips,
             nbisect, newton_iters, float(newton_maxshift),
-            int(slope_prev is not None), _ext.ptr(c), _ext.ptr(found),
+            int(slope_prev is not None), int(iwave), _ext.ptr(c),
+            _ext.ptr(found),
             _ext.ptr(slope), _ext.stream(dev))
     _ext.check(rc, 'walk')
     warm_roots_walk.launches += 1
+    warm_roots_walk.love_launches += int(iwave == 1)
     return c, found, slope
 
 
-warm_roots_walk.launches = 0
+warm_roots_walk.launches = 0          # every launch
+warm_roots_walk.love_launches = 0     # launches with iwave = 1
+warm_roots_walk_plain.evaluations = None

@@ -10,11 +10,17 @@ targets, the roots that warm-start the next solve and their bracket
 slopes (0.0 = no cache), which seed the Newton recentering of vs moves
 only.
 
-Ported target kinds (the main path): fundamental-mode Rayleigh phase
-dispersion on a flat earth and P receiver functions, with the
-uncorrelated law (corr fixed to 0, no data errors) or the whitened
-Gaussian law (RF corr fixed nonzero).  At most one RF target, because
-the model kernel builds the operands of one slowness.
+Ported target kinds: fundamental-mode Rayleigh and Love phase
+dispersion on a flat earth (at most 60 periods each) and P receiver
+functions, with the uncorrelated law (corr fixed to 0, no data errors)
+or the whitened Gaussian law (RF corr fixed nonzero).  At most one RF
+target, because the model kernel builds the operands of one slowness.
+
+Kernels on each path: the cold evaluation runs K4 (Rayleigh) or K5
+(Love) for every secular evaluation of its counting search and
+refinement, and K6 then K3 over all nsamp/2 + 1 frequencies for the RF
+target; a warm step runs K1, K2 per dispersion target (both wave types
+on K1's planes) and K3 over the Gauss-cut frequencies.
 """
 
 import numpy as np
@@ -61,13 +67,14 @@ class TargetSpec:
             raise NotImplementedError(
                 'likelihood law %r is not ported yet' % self.cov)
         if self.kind == 'swd':
-            if ((target.iwave, target.igr) != (2, 0)
+            if (target.igr != 0
                     or target.modelparams['mode'] != 1
                     or target.modelparams['flsph'] != 0
                     or target.obsdata.x.size > 60):
                 raise NotImplementedError(
-                    'only fundamental-mode Rayleigh phase velocity on a '
-                    'flat earth (<= 60 periods) is ported')
+                    'only fundamental-mode Rayleigh and Love phase '
+                    'velocity on a flat earth (<= 60 periods) is ported')
+            self.iwave = int(target.iwave)
             self.periods = np.asarray(target.obsdata.x, np.float32)
             self.omegas = _swd.angular_frequencies(self.periods, device)
         else:
@@ -203,16 +210,17 @@ class Evaluator:
         for spec in self.specs:
             if spec.kind == 'swd':
                 cg, err, roots, slopes = _swd.surfdisp_roots_cold(
-                    h, vp, vs_l, rho, spec.periods)
+                    h, vp, vs_l, rho, spec.periods, spec.iwave)
                 ys.append(cg)
                 tvalids.append(~err)
                 cache.append((cg, roots, slopes))
                 continue
-            coefs, pack = _prep.rf_operands_plain(
-                h.T, vp.T, vs_l.T, rho.T, spec.p_skm)
-            resp = _rf.transmission_response(
-                coefs, pack, spec.nsamp // 2 + 1, spec.nsamp, spec.fsamp)
-            y, tvalid = self._rf_time_series(spec, resp, pack, cold=True)
+            coefs, pack = _prep.rf_operands(
+                *(x.T.contiguous() for x in (h, vp, vs_l, rho)), spec.p_skm)
+            response = _resp.resp(coefs, pack, spec.nsamp // 2 + 1,
+                                  spec.nsamp, spec.fsamp)
+            y, tvalid = self._rf_time_series(spec, response, pack,
+                                             cold=True)
             ys.append(y)
             tvalids.append(tvalid)
             cache.append((y, self._empty(C, vs.device),
@@ -231,9 +239,9 @@ class Evaluator:
     def eval_full_batch_t(self, vs_t, z_t, n, vpvs, noise, cache, warm):
         """Warm evaluation of transposed (NL, C) proposals through the
         three kernels: K1 model operands, K2 walker per dispersion
-        target (``warm``: a ``swd.WARM_*`` setting), K3 response for
-        the RF target.  The last result is the kernel's prior
-        validity."""
+        target on K1's planes (``warm``: a ``swd.WARM_*`` setting), K3
+        response for the RF target.  The last result is the kernel's
+        prior validity."""
         C = vs_t.shape[1]
         mvalid, (props, cm, bx, top), (coefs, pack) = \
             _prep.model_operands(vs_t, z_t, n, vpvs, self.priors,
@@ -243,7 +251,7 @@ class Evaluator:
             if spec.kind == 'swd':
                 cg, err, roots_n, slopes_n = _swd.warm_solve(
                     props, cm, bx, top, spec.omegas, roots, warm,
-                    slope_prev=slopes)
+                    slope_prev=slopes, iwave=spec.iwave)
                 ys.append(cg)
                 tvalids.append(~err)
                 new_cache.append((cg, roots_n, slopes_n))

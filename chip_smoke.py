@@ -2,20 +2,36 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (K1 model operands, K2 warm root
-walker, K3 RF response) from ``bayhunter_tpu_torch/csrc`` with nvcc,
-checks each against its plain PyTorch twin on the card at the main-path
-shapes (10,240 chains, 21 layer slots), checks K2 and K3 on the
-tutorial truth model against the committed golden data
-(``tests/fixtures/st3_rdispph.dat``, ``st3_prf.dat``), then drives the
-main path — the
-tutorial joint SWD+RF inversion of ``bench.py`` — through the port's
-entry points: cold init of 10,240 chains, early cycles up to the
-early cutoff, then timed late cycles.  Last it profiles the late
-steps: host-clock time per move, and under ``torch.profiler`` the
-device's busy and idle share and each kernel's device time.  It prints
-one line per phase (the host CPU among them, since the host-side work
-sets the rate), the kernels' JSON line, and last
+Builds the port's CUDA kernels from ``bayhunter_tpu_torch/csrc`` with
+nvcc (one process per source, started together): K1 model operands, K2
+warm root walker (Rayleigh and Love), K3 RF response, K4/K5 Rayleigh
+and Love secular values, K6 RF operands.  Checks each against its plain
+PyTorch twin on the card at the main paths' shapes (10,240 chains, 21
+layer slots; K4/K5 on one 64-candidate counting block of 21 periods,
+K3 at the warm 99 and the cold 257 frequencies), timing both with CUDA
+events beside the kernel's bound (the larger of its bytes over
+3.35 TB/s and its operations over 67 TFLOP/s, the H100's float32
+peak, counted from this run's inputs).  Checks the tutorial truth model
+against the committed golden data (``tests/fixtures/st3_*.dat``): the
+cold Rayleigh and Love solves (K4, K5), the cold receiver function (K6,
+K3 at 257 frequencies), the warm walker for both wave types (K2) and
+the warm receiver function (K3).
+
+Then it drives two main paths through the port's entry points, each
+with every launch count set to 0 just before it and read just after:
+
+  * ``tutorial`` — ``bench.py``'s tutorial joint inversion (Rayleigh
+    phase + P-RF): cold init of 10,240 chains (K4, K6, K3), early
+    cycles up to the early cutoff, timed late cycles (K1, K2, K3);
+  * ``tutorial_rl_prf`` — the same with Love phase as a third target:
+    cold init (K4, K5, K6, K3), early cycles, timed late cycles (K1,
+    K2 for both wave types, K3).
+
+Last it profiles the late steps of ``tutorial``: host-clock time per
+move, and under ``torch.profiler`` the device's busy and idle share and
+each kernel's device time.  It prints one line per phase (the host CPU
+among them, since the host-side work sets the rate), the card's name
+and power limit, the kernels' JSON line, and last
 ``{"ok": true, "device": ...}``.
 
 Any mismatch or exception ends the run with a non-zero exit; without a
@@ -34,12 +50,37 @@ import numpy as np
 C_MAIN = 10240
 NL = 21
 ITERS = 2000          # bench.py's iter_burnin = iter_main
-LATE_CYCLES = 64      # timed late cycles
+LATE_CYCLES = 64      # timed late cycles of each main path
 KERNEL_REPS = 20
 STEP_REPS = 20        # host-clock steps per move in the profile phase
 PROFILE_CYCLES = 4    # late cycles under torch.profiler
-KERNEL_NAMES = (('K1', 'prep_kernel'), ('K2', 'walk_kernel'),
-                ('K3', 'resp_kernel'))
+# device kernel names, as the profiler lists them
+KERNEL_NAMES = (('K1', '::prep_kernel('), ('K2', 'walk_kernel'),
+                ('K3', 'resp_kernel'), ('K4', 'secular_kernel<2>'),
+                ('K5', 'secular_kernel<1>'), ('K6', 'rf_prep_kernel'))
+WARM_KERNELS = ('K1', 'K2', 'K3')     # the kernels of a late step
+
+# The H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM bytes/s
+# and float32 operations/s outside the tensor cores.
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = 67e12
+# Float32 operations per unit of work, counted by hand from csrc/ (an
+# add, multiply, divide, compare-select, square root or other
+# transcendental is one operation each).
+OPS = dict(
+    dunkin_layer=200,     # secular.cuh dltar4_layer
+    dunkin_fixed=45,      # wavenumber, halfspace start, water clause
+    haskell_layer=30,     # secular.cuh dltar1_layer
+    haskell_fixed=12,     # wavenumber, halfspace start
+    walk_eval=12,         # walker bookkeeping around one evaluation
+    resp_layer=450,       # resp.cu: two phase terms, the 2x2 algebra
+    resp_fixed=500,       # resp.cu: Q factors, surface layer, closure
+    rf_interface=420,     # cplx.cuh interface_coeffs + skip-depth test
+    rf_slot=25,           # flattening (two logs) and t0 of one slot
+    rf_fixed=150,         # displacement and free-surface matrices
+    model_slot=35,        # voronoi, validity and SWD rows of one slot
+    model_fixed=150,      # gtsolh's five Newton steps
+)
 
 
 def log(msg):
@@ -74,6 +115,27 @@ def timed(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def entry(counter, name, source, replaces, err, ms, plain_ms, moved, ops):
+    """One kernel's record of the JSON line: ``moved`` bytes (each input
+    read once, each output written once) and ``ops`` float32 operations
+    that this run's inputs need give the bound; ``counter`` names its
+    launch count in :func:`launch_counts`."""
+    t_bytes = 1e3 * moved / PEAK_BYTES
+    t_ops = 1e3 * ops / PEAK_FLOPS
+    return dict(counter=counter, name=name, route='cuda',
+                source='bayhunter_tpu_torch/csrc/' + source,
+                replaces='bayhunter_tpu/ops/' + replaces,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by='bytes' if t_bytes >= t_ops else 'operations',
+                bound_share=max(t_bytes, t_ops) / ms, library_ms=None)
+
+
 def grown_models(C, nl, seed=3):
     """Seeded 5-8 layer models around the tutorial truth (the
     distribution of tests/test_dim_reject_pin.py _grown_states)."""
@@ -98,10 +160,65 @@ def grown_models(C, nl, seed=3):
     return VS, Z, N
 
 
+def secular_ops(top, evaluations, iwave):
+    """Operations of the secular function: ``evaluations`` per chain (a
+    number, or (C, R) per lane), each running the chain's layers
+    top..0."""
+    layer, fixed = ((OPS['haskell_layer'], OPS['haskell_fixed'])
+                    if iwave == 1 else
+                    (OPS['dunkin_layer'], OPS['dunkin_fixed']))
+    per_eval = fixed + (top.double()[:, None] + 1.0) * layer
+    return float((evaluations * per_eval).sum())
+
+
+def check_walker(torch, counter, name, iwave, wargs, slopes):
+    """K2 for one wave type against its twin, for each move class:
+    (record, max error).  The bound counts the secular evaluations each
+    lane makes (the twin counts them)."""
+    from bayhunter_tpu_torch.ops import swd, walk
+
+    props, omegas, c_prev, cm, bx, top = wargs
+    err = ms = plain_ms = moved = ops = 0.0
+    for move, st in (('vs', swd.WARM_VS), ('z', swd.WARM_Z),
+                     ('dim', swd.WARM_DIM)):
+        sl = slopes if st['cached_slope'] else None
+        kw = dict(ring_k=st['ring'], trips=swd.WARM_CAP,
+                  nbisect=st['nbisect'], newton_iters=st['newton_iters'],
+                  newton_maxshift=swd.NEWTON_MAXSHIFT, slope_prev=sl,
+                  iwave=iwave)
+        kc, kf, ks = walk.warm_roots_walk(*wargs, **kw)
+        pc, pf, ps = walk.warm_roots_walk_plain(*wargs, **kw)
+        evals = walk.warm_roots_walk_plain.evaluations
+        torch.cuda.synchronize()
+        flips = float((kf != pf).float().mean())
+        both = kf & pf
+        d = (kc - pc).abs()[both]
+        p90 = float(torch.quantile(d.float(), 0.9)) if d.numel() else 0.0
+        dmax = float(d.max()) if d.numel() else 0.0
+        bitwise = bool(torch.equal(kc, pc) and torch.equal(kf, pf)
+                       and torch.equal(ks, ps))
+        err = max(err, dmax)
+        log('%s (%s moves): found %.4f, found flags differ on %.2e of '
+            'lanes (limit 1e-4), root p90 %.3g (limit 2e-5), max %.3g '
+            '(limit 5e-4), bitwise %s, %.2f evaluations per lane'
+            % (name, move, float(kf.float().mean()), flips, p90, dmax,
+               bitwise, float(evals.double().mean())))
+        if not (flips <= 1e-4 and p90 < 2e-5 and dmax < 5e-4):
+            raise AssertionError('%s differs from its twin' % name)
+        ms += timed(lambda: walk.warm_roots_walk(*wargs, **kw), KERNEL_REPS)
+        plain_ms += timed(lambda: walk.warm_roots_walk_plain(*wargs, **kw),
+                          2)
+        moved += nbytes(props, omegas, c_prev, cm, bx, top, sl, kc, kf, ks)
+        ops += secular_ops(top.clamp(max=NL - 2), evals.double(), iwave)
+        ops += OPS['walk_eval'] * float(evals.double().sum())
+    return entry(counter, name, 'walk.cu', 'pallas_walk.py:71', err, ms / 3,
+                 plain_ms / 3, moved / 3, ops / 3)
+
+
 def check_kernels(torch, dev):
     """Each kernel against its twin on the card at main-path shapes."""
     from bayhunter_tpu_torch import bench_config
-    from bayhunter_tpu_torch.ops import prep, resp, swd, walk
+    from bayhunter_tpu_torch.ops import prep, resp, rf, swd, walk
 
     sampler, ev = bench_config.build(dev, iters=ITERS, nl=NL)
     VS, Z, N = grown_models(C_MAIN, NL)
@@ -125,159 +242,232 @@ def check_kernels(torch, dev):
         '(tolerance 3e-6)' % (int(kv.sum()), C_MAIN, err1))
     if not err1 <= 3e-6:
         raise AssertionError('K1 operands differ from the twin')
-    out.append(dict(name='K1 model operands', route='cuda',
-                    source='bayhunter_tpu_torch/csrc/prep.cu',
-                    replaces='bayhunter_tpu/ops/pallas_prep.py:315',
-                    max_abs_err=err1,
-                    ms=timed(lambda: prep.model_operands(*args),
-                             KERNEL_REPS),
-                    plain_ms=timed(lambda: prep.model_operands_plain(*args),
-                                   3)))
+    out.append(entry(
+        'K1', 'K1 model operands', 'prep.cu', 'pallas_prep.py:315', err1,
+        timed(lambda: prep.model_operands(*args), KERNEL_REPS),
+        timed(lambda: prep.model_operands_plain(*args), 3),
+        nbytes(vs_t, z_t, n, vpvs, kv, *ksw, *krf),
+        C_MAIN * (OPS['model_fixed'] + OPS['rf_fixed']
+                  + NL * (OPS['model_slot'] + OPS['rf_slot'])
+                  + (NL - 1) * OPS['rf_interface'])))
 
-    # K2, for each move class, from cold roots moved off the DDC grid
+    # K4 / K5 on the first counting block of the cold search (64
+    # candidates above cm at each of the 21 periods)
     props, cm, bx, top = ksw
-    h, vp, vs_l, rho = (props[k * NL:(k + 1) * NL].T.contiguous()
-                        for k in range(4))
+    layers = tuple(props[k * NL:(k + 1) * NL].T.contiguous()
+                   for k in range(4))
     spec = ev.specs[0]
-    omegas = spec.omegas
-    roots, slopes = [], []
-    for i in range(0, C_MAIN, 2048):
-        _, _, r_, s_ = swd.surfdisp_roots_cold(
-            h[i:i + 2048], vp[i:i + 2048], vs_l[i:i + 2048],
-            rho[i:i + 2048], spec.periods)
-        roots.append(r_)
-        slopes.append(s_)
-    roots, slopes = torch.cat(roots), torch.cat(slopes)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(11)
-    c_prev = roots + 0.0013 + 0.04 * (torch.rand(
-        roots.shape, generator=gen, device=dev) - 0.5)
-    err2 = 0.0
-    k2_ms = k2_plain = 0.0
-    for name, st in (('vs', swd.WARM_VS), ('z', swd.WARM_Z),
-                     ('dim', swd.WARM_DIM)):
-        kw = dict(ring_k=st['ring'], trips=swd.WARM_CAP,
-                  nbisect=st['nbisect'], newton_iters=st['newton_iters'],
-                  newton_maxshift=swd.NEWTON_MAXSHIFT,
-                  slope_prev=slopes if st['cached_slope'] else None)
-        wargs = (props, omegas, c_prev, cm, bx, top)
-        kc, kf, ks = walk.warm_roots_walk(*wargs, **kw)
-        pc, pf, ps = walk.warm_roots_walk_plain(*wargs, **kw)
-        torch.cuda.synchronize()
-        flips = float((kf != pf).float().mean())
-        both = kf & pf
-        d = (kc - pc).abs()[both]
-        p90 = float(torch.quantile(d.float(), 0.9)) if d.numel() else 0.0
-        dmax = float(d.max()) if d.numel() else 0.0
-        err2 = max(err2, dmax)
-        log('K2 walker (%s moves): found %.4f, found flags differ on '
-            '%.2e of lanes (limit 1e-4), root p90 %.3g (limit 2e-5), '
-            'max %.3g (limit 5e-4)' % (name, float(kf.float().mean()),
-                                       flips, p90, dmax))
-        if not (flips <= 1e-4 and p90 < 2e-5 and dmax < 5e-4):
-            raise AssertionError('K2 differs from its twin')
-        k2_ms += timed(lambda: walk.warm_roots_walk(*wargs, **kw),
-                       KERNEL_REPS)
-        k2_plain += timed(lambda: walk.warm_roots_walk_plain(*wargs,
-                                                             **kw), 2)
-    out.append(dict(name='K2 warm root walker', route='cuda',
-                    source='bayhunter_tpu_torch/csrc/walk.cu',
-                    replaces='bayhunter_tpu/ops/pallas_walk.py:71',
-                    max_abs_err=err2, ms=k2_ms / 3, plain_ms=k2_plain / 3))
+    omega = swd.angular_frequencies(spec.periods, dev)[None, :, None]
+    koff = torch.arange(1, swd.KBLOCK + 1, device=dev) * swd.DDC
+    wvno = omega / (cm[:, None, None] + koff)
+    R = omega.shape[1]
+    cand_top = swd.layer_top(layers[0])
+    for iwave, counter, tag, twin in (
+            (2, 'K4', 'K4 Rayleigh secular values', swd.dltar4),
+            (1, 'K5', 'K5 Love secular values', swd.dltar1)):
+        lay = layers if iwave == 2 else (layers[0], layers[2], layers[3])
 
-    # K3
-    coefs, pack = krf
+        def kernel():
+            return swd.secular_values(wvno, omega, *layers, iwave)
+
+        def plain():
+            return twin(wvno, omega, *lay)
+
+        k, p = kernel(), plain()
+        torch.cuda.synchronize()
+        err = float((k - p).abs().max())
+        log('%s: %d x %d x %d candidates, max |kernel - twin| = %.3g '
+            '(bitwise required), |values| up to %.3g'
+            % (tag, C_MAIN, R, swd.KBLOCK, err, float(p.abs().max())))
+        if not (bool(torch.isfinite(k).all()) and torch.equal(k, p)):
+            raise AssertionError('%s differ from the twin' % tag)
+        out.append(entry(
+            counter, tag, 'secular.cu', 'pallas_secular.py:%d'
+            % (267 if iwave == 2 else 332), err,
+            timed(kernel, KERNEL_REPS), timed(plain, 3),
+            nbytes(wvno, omega, k, *lay),
+            secular_ops(cand_top, R * swd.KBLOCK, iwave)))
+
+    # K2 for both wave types, from cold roots (K4, K5) moved off the
+    # DDC grid
+    gen = torch.Generator(device=dev)
+    for iwave, counter, tag in (
+            (2, 'K2_rayleigh', 'K2 warm root walker (Rayleigh)'),
+            (1, 'K2_love', 'K2 warm root walker (Love)')):
+        roots, slopes = [], []
+        for i in range(0, C_MAIN, 2048):
+            _, _, r_, s_ = swd.surfdisp_roots_cold(
+                *(x[i:i + 2048] for x in layers), spec.periods, iwave)
+            roots.append(r_)
+            slopes.append(s_)
+        roots, slopes = torch.cat(roots), torch.cat(slopes)
+        gen.manual_seed(11)
+        c_prev = roots + 0.0013 + 0.04 * (torch.rand(
+            roots.shape, generator=gen, device=dev) - 0.5)
+        out.append(check_walker(torch, counter, tag, iwave,
+                                (props, spec.omegas, c_prev, cm, bx, top),
+                                slopes))
+
+    # K3 at the warm path's Gauss-cut lanes, on K1's operands, and K6 ->
+    # K3 at all nsamp/2 + 1 lanes, as the cold evaluation runs them
     rspec = ev.specs[1]
-    rargs = (coefs, pack, rspec.cut, rspec.nsamp, rspec.fsamp)
-    ko = resp.resp(*rargs)
-    po = resp.resp_plain(*rargs)
+    planes = tuple(props[k * NL:(k + 1) * NL] for k in range(4))
+    kc6, kp6 = prep.rf_operands(*planes, ev.p_skm)
+    pc6, pp6 = prep.rf_operands_plain(*planes, ev.p_skm)
     torch.cuda.synchronize()
-    scale = float(torch.maximum(po[0].abs().max(), po[1].abs().max()))
-    err3 = max(float((a - b).abs().max()) for a, b in zip(ko, po))
-    log('K3 RF response: max |kernel - twin| = %.3g, limit 1e-5 x max|cz| '
-        '= %.3g' % (err3, 1e-5 * scale))
-    if not err3 <= 1e-5 * scale:
-        raise AssertionError('K3 differs from its twin')
-    out.append(dict(name='K3 RF response', route='cuda',
-                    source='bayhunter_tpu_torch/csrc/resp.cu',
-                    replaces='bayhunter_tpu/ops/pallas_rf.py:288',
-                    max_abs_err=err3,
-                    ms=timed(lambda: resp.resp(*rargs), KERNEL_REPS),
-                    plain_ms=timed(lambda: resp.resp_plain(*rargs), 3)))
+    err6 = max(float((kc6 - pc6).abs().max()),
+               float((kp6 - pp6).abs().max()))
+    log('K6 RF operands: max |kernel - twin| = %.3g (bitwise required)'
+        % err6)
+    if not (torch.equal(kc6, pc6) and torch.equal(kp6, pp6)):
+        raise AssertionError('K6 differs from its twin')
+    out.append(entry(
+        'K6', 'K6 RF operands', 'prep.cu', 'pallas_prep.py:141', err6,
+        timed(lambda: prep.rf_operands(*planes, ev.p_skm), KERNEL_REPS),
+        timed(lambda: prep.rf_operands_plain(*planes, ev.p_skm), 3),
+        nbytes(*planes, kc6, kp6),
+        C_MAIN * (OPS['rf_fixed'] + NL * OPS['rf_slot']
+                  + (NL - 1) * OPS['rf_interface'])))
+    depth_row = rf.pack_offsets(NL)['depth']
+    for (coefs, pack), cut, counter, tag in (
+            (krf, rspec.cut, 'K3_warm', 'K3 RF response (%d lanes, warm)'),
+            ((kc6, kp6), rspec.nsamp // 2 + 1, 'K3_cold',
+             'K3 RF response (%d lanes, cold)')):
+        tag = tag % cut
+        rargs = (coefs, pack, cut, rspec.nsamp, rspec.fsamp)
+        ko = resp.resp(*rargs)
+        po = resp.resp_plain(*rargs)
+        torch.cuda.synchronize()
+        scale = float(torch.maximum(po[0].abs().max(), po[1].abs().max()))
+        err3 = max(float((a - b).abs().max()) for a, b in zip(ko, po))
+        bitwise = all(torch.equal(a, b) for a, b in zip(ko, po))
+        log('%s: max |kernel - twin| = %.3g, limit 1e-5 x max|cz| = %.3g, '
+            'bitwise %s' % (tag, err3, 1e-5 * scale, bitwise))
+        if not err3 <= 1e-5 * scale:
+            raise AssertionError('K3 differs from its twin')
+        depth = pack[depth_row].clamp(max=NL - 2).double()
+        out.append(entry(
+            counter, tag, 'resp.cu', 'pallas_rf.py:288', err3,
+            timed(lambda: resp.resp(*rargs), KERNEL_REPS),
+            timed(lambda: resp.resp_plain(*rargs), 3),
+            nbytes(pack, *ko) + 4 * 32 * C_MAIN * float((depth + 1).mean()),
+            cut * float((OPS['resp_fixed']
+                         + depth * OPS['resp_layer']).sum())))
     return out
 
 
-def check_golden(torch, dev):
-    """The tutorial truth model (tests/conftest.py tutorial_model)
-    through K2, for each move setting from a warm start off the DDC
-    grid, and through K3, against the committed golden data."""
-    from bayhunter_tpu_torch import bench_config
-    from bayhunter_tpu_torch.ops import prep, resp, rf, swd, walk
-
-    obs_swd = np.loadtxt(os.path.join(bench_config.FIXTURES,
-                                      'st3_rdispph.dat'))
-    obs_rf = np.loadtxt(os.path.join(bench_config.FIXTURES,
-                                     'st3_prf.dat'))[:201, 1]
+def tutorial_layers(torch, dev):
+    """The tutorial truth model (tests/conftest.py tutorial_model) as
+    (NL, 1) planes h, vp, vs, rho."""
     h = np.zeros((NL, 1), np.float32)
     h[:3, 0] = [5., 23., 8.]
     vs = np.full((NL, 1), 4.4, np.float32)
     vs[:4, 0] = [2.7, 3.6, 3.8, 4.4]
     vp = vs * np.float32(1.73)
     rho = vp * np.float32(0.32) + np.float32(0.77)
-    h, vp, vs, rho = (torch.tensor(x, device=dev) for x in (h, vp, vs, rho))
+    return tuple(torch.tensor(x, device=dev) for x in (h, vp, vs, rho))
 
-    periods = obs_swd[:, 0].astype(np.float32)
-    _, err, roots, slopes = swd.surfdisp_roots_cold(h.T, vp.T, vs.T, rho.T,
-                                                    periods)
-    if bool(err.any()):
-        raise AssertionError('cold solve of the tutorial model failed')
+
+def check_golden(torch, dev):
+    """The tutorial truth model against the committed golden data:
+    cold phase velocities of both wave types (K4, K5), the cold receiver
+    function (K6, K3 over all frequencies), then warm phase velocities
+    (K2, each move setting from a warm start off the DDC grid) and the
+    warm receiver function (K1's RF rows are K6's; K3 over the Gauss-cut
+    lanes)."""
+    from bayhunter_tpu_torch import bench_config
+    from bayhunter_tpu_torch.ops import prep, resp, rf, swd, walk
+
+    fx = bench_config.FIXTURES
+    obs_rf = np.loadtxt(os.path.join(fx, 'st3_prf.dat'))[:201, 1]
+    h, vp, vs, rho = tutorial_layers(torch, dev)
     props = torch.cat([h, vp, vs, rho]).contiguous()
     cm, bx = swd.lower_bound(vp, vs, dim=0)
     top = torch.tensor([2.0], device=dev)
-    omegas = swd.angular_frequencies(periods, dev)
-    worst = 0.0
-    for st in (swd.WARM_VS, swd.WARM_Z, swd.WARM_DIM):
-        c, found, _ = walk.warm_roots_walk(
-            props, omegas, (roots + 0.0013).contiguous(), cm, bx, top,
-            st['ring'], swd.WARM_CAP, st['nbisect'], st['newton_iters'],
-            swd.NEWTON_MAXSHIFT,
-            slope_prev=slopes if st['cached_slope'] else None)
-        if not bool(found.all()):
-            raise AssertionError('K2 lost a root of the tutorial model')
-        worst = max(worst, float(np.abs(c[0].cpu().numpy()
-                                        - obs_swd[:, 1]).max()))
+    errs = {}
+    for name, iwave in (('rdispph', 2), ('ldispph', 1)):
+        obs = np.loadtxt(os.path.join(fx, 'st3_%s.dat' % name))
+        periods = obs[:, 0].astype(np.float32)
+        cg, err, roots, slopes = swd.surfdisp_roots_cold(
+            h.T, vp.T, vs.T, rho.T, periods, iwave)
+        if bool(err.any()):
+            raise AssertionError('cold %s solve of the tutorial model '
+                                 'failed' % name)
+        errs['cold ' + name] = float(np.abs(cg[0].cpu().numpy()
+                                            - obs[:, 1]).max())
+        omegas = swd.angular_frequencies(periods, dev)
+        worst = 0.0
+        for st in (swd.WARM_VS, swd.WARM_Z, swd.WARM_DIM):
+            c, found, _ = walk.warm_roots_walk(
+                props, omegas, (roots + 0.0013).contiguous(), cm, bx, top,
+                st['ring'], swd.WARM_CAP, st['nbisect'], st['newton_iters'],
+                swd.NEWTON_MAXSHIFT,
+                slope_prev=slopes if st['cached_slope'] else None,
+                iwave=iwave)
+            if not bool(found.all()):
+                raise AssertionError('K2 lost a root of the tutorial model')
+            worst = max(worst, float(np.abs(c[0].cpu().numpy()
+                                            - obs[:, 1]).max()))
+        errs['warm ' + name] = worst
 
-    coefs, pack = prep.rf_operands_plain(h, vp, vs, rho, 6.4 * rf.DEG_PER_KM)
     nsamp, fsamp, tshift = 512, 5.0, 5.0
+    coefs, pack = prep.rf_operands(h, vp, vs, rho, 6.4 * rf.DEG_PER_KM)
+    full = resp.resp(coefs, pack, nsamp // 2 + 1, nsamp, fsamp)
+    y = rf.receiver_function(full, pack, NL, nsamp, fsamp, tshift, 1.0)
+    errs['cold prf'] = float(np.abs(y[0, :201].cpu().numpy()
+                                    - obs_rf).max())
     cut = rf.gauss_cut(nsamp, fsamp, 1.0)
     response = resp.resp(coefs, pack, cut, nsamp, fsamp)
     y = rf.receiver_function(response, pack, NL, nsamp, fsamp, tshift, 1.0,
                              dft=rf.dft_tables(cut, nsamp, fsamp, tshift,
                                                1.0, dev))
-    err_rf = float(np.abs(y[0, :201].cpu().numpy() - obs_rf).max())
-    log('golden: tutorial model, K2 phase velocities max |err| = %.3g, '
-        'K3 receiver function max |err| = %.3g (limit 1e-4 each)'
-        % (worst, err_rf))
-    if not (worst <= 1e-4 and err_rf <= 1e-4):
+    errs['warm prf'] = float(np.abs(y[0, :201].cpu().numpy()
+                                    - obs_rf).max())
+    log('golden: tutorial model max |err| ' + json.dumps(errs)
+        + ' (limit 1e-4 each)')
+    if not all(e <= 1e-4 for e in errs.values()):
         raise AssertionError('the kernels miss the tutorial golden data')
 
 
-def main_path(torch, dev):
-    """The bench.py configuration through the port's entry points."""
-    from bayhunter_tpu_torch import bench_config
-    from bayhunter_tpu_torch.ops import prep, resp, walk
+def launch_counts():
+    """The launch counts of every kernel wrapper: K2's split by wave."""
+    from bayhunter_tpu_torch.ops import prep, resp, swd, walk
+    w = walk.warm_roots_walk
+    return dict(K1=prep.model_operands.launches,
+                K2_rayleigh=w.launches - w.love_launches,
+                K2_love=w.love_launches, K3=resp.resp.launches,
+                K4=swd.secular4.launches, K5=swd.secular1.launches,
+                K6=prep.rf_operands.launches)
+
+
+def reset_counts():
+    from bayhunter_tpu_torch.ops import prep, resp, swd, walk
+    for w in (prep.model_operands, walk.warm_roots_walk, resp.resp,
+              swd.secular4, swd.secular1, prep.rf_operands):
+        w.launches = 0
+    walk.warm_roots_walk.love_launches = 0
+
+
+def main_path(torch, dev, name, build, kernels):
+    """One configuration through the port's entry points, with the
+    launch counts set to 0 before and read after; fails unless each of
+    ``kernels`` launched.  Returns (launches at init, launches in all,
+    sampler, states, generator)."""
     from bayhunter_tpu_torch.sampler.chain import dispatch_cycles
 
-    wrappers = (prep.model_operands, walk.warm_roots_walk, resp.resp)
-    for w in wrappers:
-        w.launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats(dev)
-    sampler, _ = bench_config.build(dev, iters=ITERS, nl=NL)
+    sampler, _ = build(dev, iters=ITERS, nl=NL)
     t0 = time.perf_counter()
     states, gen = sampler.init_states_host(0, C_MAIN)
     torch.cuda.synchronize()
-    log('init: %d chains evaluated cold in %.2f s'
-        % (C_MAIN, time.perf_counter() - t0))
+    t_init = time.perf_counter() - t0
+    at_init = launch_counts()
+    log('%s init: %d chains evaluated cold in %.3f s, launches %s, peak '
+        '%.3f GiB, %d chains with a failed forward solve'
+        % (name, C_MAIN, t_init, json.dumps(at_init),
+           torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           int((states.logL <= -1e14).sum())))
     it = -ITERS
     cel = len(sampler.early_order)
     n_early = int(np.ceil(max(0.0, sampler.early_cutoff - it) / cel)) * cel
@@ -288,28 +478,31 @@ def main_path(torch, dev):
     states = dispatch_cycles(sampler, states, it, 2 * clen, gen)  # warm
     it += 2 * clen
     torch.cuda.synchronize()
-    log('early phase: %d iterations (+%d warm-up late) in %.2f s'
-        % (n_early, 2 * clen, time.perf_counter() - t0))
+    log('%s early phase: %d iterations (+%d warm-up late) in %.2f s'
+        % (name, n_early, 2 * clen, time.perf_counter() - t0))
     t0 = time.perf_counter()
     count = LATE_CYCLES * clen
     states = dispatch_cycles(sampler, states, it, count, gen)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = [w.launches for w in wrappers]
+    launches = launch_counts()
     ff = states.fwdfail.sum(0).cpu().numpy()
     pp = states.proposed.sum(0).cpu().numpy()
     acc = states.accepted.sum(0).cpu().numpy()
-    rate = count * C_MAIN / dt
     stats = dict(
-        proposals_per_s=rate, iters_timed=count, seconds_timed=dt,
+        config=name, init_s=t_init,
+        proposals_per_s=count * C_MAIN / dt, iters_timed=count,
+        seconds_timed=dt,
         fwd_reject_pct=100.0 * ff.sum() / max(pp.sum(), 1),
         fwd_reject_dim_pct=(100.0 * ff[2] / pp[2]) if pp[2] else None,
         accepted=acc.tolist(), proposed=pp.tolist(),
         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-        launches=dict(zip(('K1', 'K2', 'K3'), launches)))
+        launches=launches)
     log('main path: ' + json.dumps(stats))
-    if not all(n > 0 for n in launches):
-        raise AssertionError('a kernel of the main path never launched')
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        raise AssertionError('%s: kernels %s never launched' % (name,
+                                                                missing))
     if not bool(torch.isfinite(states.logL).all()):
         raise AssertionError('non-finite logL')
     if not acc[2] > 0:
@@ -318,7 +511,7 @@ def main_path(torch, dev):
         if not bool(torch.isfinite(y).all()):
             raise AssertionError('non-finite cached synthetics, target %d'
                                  % t)
-    return launches, sampler, states, gen
+    return at_init, launches, sampler, states, gen
 
 
 def merged_length(intervals):
@@ -371,8 +564,10 @@ def profile_steps(torch, sampler, states, gen):
         [(e.time_range.start, e.time_range.end) for e in dev_events])
     kernel_ms = {}
     for tag, name in KERNEL_NAMES:
-        kernel_ms[tag] = 1e-3 * sum(e.time_range.elapsed_us()
-                                    for e in dev_events if name in e.name)
+        if tag in WARM_KERNELS:
+            kernel_ms[tag] = 1e-3 * sum(e.time_range.elapsed_us()
+                                        for e in dev_events
+                                        if name in e.name)
     iters = PROFILE_CYCLES * len(sampler.late_order)
     stats = dict(
         step_ms=step_ms, profiled_iters=iters, wall_ms=wall_ms,
@@ -390,6 +585,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py needs a CUDA device')
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from bayhunter_tpu_torch import bench_config
     from bayhunter_tpu_torch.ops import _ext
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -409,10 +605,31 @@ def main():
 
     kernels = check_kernels(torch, dev)
     check_golden(torch, dev)
-    launches, sampler, states, gen = main_path(torch, dev)
+    by_path = {}
+    init_a, all_a, sampler, states, gen = main_path(
+        torch, dev, 'tutorial', bench_config.build,
+        ('K1', 'K2_rayleigh', 'K3', 'K4', 'K6'))
+    by_path['tutorial'] = (init_a, all_a)
     profile_steps(torch, sampler, states, gen)
-    for k, n in zip(kernels, launches):
-        k['launches'] = n
+    del sampler, states, gen
+    init_b, all_b, _, _, _ = main_path(
+        torch, dev, 'tutorial_rl_prf', bench_config.build_rl_prf,
+        ('K1', 'K2_rayleigh', 'K2_love', 'K3', 'K4', 'K5', 'K6'))
+    by_path['tutorial_rl_prf'] = (init_b, all_b)
+    # K3 runs at all frequencies only in the cold init, at the
+    # Gauss-cut ones only in the cycles
+    for k in kernels:
+        counter = k.pop('counter')
+        per = {}
+        for path, (at_init, total) in by_path.items():
+            if counter == 'K3_cold':
+                per[path] = at_init['K3']
+            elif counter == 'K3_warm':
+                per[path] = total['K3'] - at_init['K3']
+            else:
+                per[path] = total[counter]
+        k['launches'] = sum(per.values())
+        k['launches_by_path'] = per
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

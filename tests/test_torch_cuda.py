@@ -1,7 +1,10 @@
-"""CUDA kernels vs their plain twins on the card, at a small batch.
+"""CUDA kernels vs their plain twins on the card: K1-K3 at a small
+batch, K4/K5 (secular values), K6 (RF operands), K3 over all 257
+frequencies and K2's Love branch bit for bit.
 
 Needs an NVIDIA GPU and nvcc (marker ``cuda``); skipped elsewhere.  On
-a machine with a card:  ``python -m pytest tests/test_torch_cuda.py``.
+a machine with a card:
+``python -m pytest --noconftest tests/test_torch_cuda.py``.
 ``chip_smoke.py`` runs the same checks at the main path's shapes.
 """
 
@@ -84,3 +87,83 @@ def test_response_kernel_matches_twin(dev):
     scale = float(torch.maximum(po[0].abs().max(), po[1].abs().max()))
     for a, b in zip(ko, po):
         assert float((a - b).abs().max()) <= 1e-5 * scale
+
+
+def _layers(dev, C):
+    """(C, NL) layer arrays h, vp, vs, rho of :func:`_models` from K1's
+    walker planes."""
+    _, (props, _, _, _), _ = prep.model_operands(*_models(dev, C=C),
+                                                 PRIORS, P_SKM)
+    return tuple(props[k * NL:(k + 1) * NL].T.contiguous() for k in range(4))
+
+
+@pytest.mark.parametrize('iwave', [2, 1], ids=['K4', 'K5'])
+def test_secular_kernels_match_twins_bitwise(dev, iwave):
+    C, R, K = 10240, 21, 64
+    h, vp, vs, rho = _layers(dev, C)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    c = 2.0 + 2.8 * torch.rand((C, R, K), generator=gen, device=dev)
+    omega = swd.angular_frequencies(np.linspace(1, 41, R), dev)[None, :,
+                                                                None]
+    wvno = omega / c
+    counter = swd.secular1 if iwave == 1 else swd.secular4
+    before = counter.launches
+    k = swd.secular_values(wvno, omega, h, vp, vs, rho, iwave)
+    assert counter.launches == before + 1
+    if iwave == 1:
+        p = swd.dltar1(wvno, omega, h, vs, rho)
+    else:
+        p = swd.dltar4(wvno, omega, h, vp, vs, rho)
+    assert k.shape == (C, R, K)
+    assert bool(torch.isfinite(k).all())
+    assert torch.equal(k, p)
+
+
+def test_rf_operands_kernel_matches_twin_bitwise(dev):
+    layers = tuple(x.T.contiguous() for x in _layers(dev, 10240))
+    before = prep.rf_operands.launches
+    kc, kp = prep.rf_operands(*layers, P_SKM)
+    assert prep.rf_operands.launches == before + 1
+    pc, pp = prep.rf_operands_plain(*layers, P_SKM)
+    assert torch.equal(kc, pc)
+    assert torch.equal(kp, pp)
+
+
+def test_response_kernel_all_frequencies_matches_twin(dev):
+    layers = tuple(x.T.contiguous() for x in _layers(dev, 1024))
+    coefs, pack = prep.rf_operands(*layers, P_SKM)
+    ko = resp.resp(coefs, pack, 257, 512, 5.0)
+    po = resp.resp_plain(coefs, pack, 257, 512, 5.0)
+    assert ko[0].shape == (1024, 257)
+    for a, b in zip(ko, po):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('setting', ['vs', 'z', 'dim'])
+def test_love_walker_kernel_matches_twin_bitwise(dev, setting):
+    st = {'vs': swd.WARM_VS, 'z': swd.WARM_Z, 'dim': swd.WARM_DIM}[setting]
+    _, (props, cm, bx, top), _ = prep.model_operands(*_models(dev),
+                                                     PRIORS, P_SKM)
+    periods = np.linspace(1, 41, 21).astype(np.float32)
+    h, vp, vs, rho = (props[k * NL:(k + 1) * NL].T.contiguous()
+                      for k in range(4))
+    _, _, roots, slopes = swd.surfdisp_roots_cold(h, vp, vs, rho, periods, 1)
+    c_prev = roots + 0.0013
+    kw = dict(ring_k=st['ring'], trips=swd.WARM_CAP,
+              nbisect=st['nbisect'], newton_iters=st['newton_iters'],
+              newton_maxshift=swd.NEWTON_MAXSHIFT,
+              slope_prev=slopes if st['cached_slope'] else None, iwave=1)
+    args = (props, swd.angular_frequencies(periods, dev), c_prev, cm, bx,
+            top)
+    kc, kf, ks = walk.warm_roots_walk(*args, **kw)
+    pc, pf, ps = walk.warm_roots_walk_plain(*args, **kw)
+    # these random models include halfspaces within a few m/s of the
+    # layer above, whose long-period Love roots the cold search cannot
+    # bracket: count the walks that start from a found root
+    cold = slopes != 0.0
+    assert float(cold.float().mean()) > 0.8
+    assert float(kf[cold].float().mean()) > 0.9
+    assert torch.equal(kf, pf)
+    assert torch.equal(kc, pc)
+    assert torch.equal(ks, ps)

@@ -13,21 +13,26 @@ import numpy as np
 import torch
 import bayhunter_tpu_torch
 from bayhunter_tpu_torch import bench_config, convert
-from bayhunter_tpu_torch.ops import prep, resp, walk, swd
+from bayhunter_tpu_torch.ops import _ext, prep, resp, walk, swd
 from bayhunter_tpu_torch.sampler.chain import dispatch_cycles
 assert 'jax' not in sys.modules, 'jax imported'
 assert 'bayhunter_tpu' not in sys.modules, 'the JAX package imported'
 assert 'triton' not in sys.modules, 'triton imported'
 
-sampler, ev = bench_config.build('cpu', iters=20)
-states, gen = sampler.init_states_host(0, 4)
-states = dispatch_cycles(sampler, states, -20, 5, gen)
-states = dispatch_cycles(sampler, states, -15, 5, gen)
-assert int(states.proposed[:, 2].sum()) > 0, 'no dimension step ran'
-assert bool(torch.isfinite(states.logL).all())
+for build in (bench_config.build, bench_config.build_rl_prf):
+    sampler, ev = build('cpu', iters=20)
+    states, gen = sampler.init_states_host(0, 4)
+    states = dispatch_cycles(sampler, states, -20, 5, gen)
+    states = dispatch_cycles(sampler, states, -15, 5, gen)
+    assert int(states.proposed[:, 2].sum()) > 0, 'no dimension step ran'
+    assert bool(torch.isfinite(states.logL).all())
+assert len(states.cache) == 3
 counts = (prep.model_operands.launches, walk.warm_roots_walk.launches,
-          resp.resp.launches)
-assert counts == (0, 0, 0), counts
+          resp.resp.launches, swd.secular4.launches,
+          swd.secular1.launches, prep.rf_operands.launches)
+assert counts == (0,) * 6, counts
+assert _ext._Build.lib is None, 'the kernel library was loaded'
+
 assert 'jax' not in sys.modules
 print('OK')
 '''
