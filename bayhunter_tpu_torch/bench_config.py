@@ -6,10 +6,13 @@
     (``tests/fixtures/st3_rdispph.dat``, ``st3_prf.dat``);
   * ``build_rl_prf`` — ``tutorial_rl_prf``: the same with Love phase
     dispersion (``st3_ldispph.dat``) as a third target, the joint the
-    JAX package tests in ``tests/test_pallas.py:517-575``.
+    JAX package tests in ``tests/test_pallas.py:517-575``;
+  * ``build_prf_srf`` — ``tutorial_prf_srf``: the main path with an S
+    receiver function (``st3_srf.dat``) as a third target.
 
 Flat earth, fundamental mode, uncorrelated SWD noise and the
-whitened-Gaussian RF law in both."""
+whitened-Gaussian RF law in all three; the RF targets share the
+``rfnoise_*`` priors, as in the JAX package."""
 
 import os
 
@@ -27,6 +30,16 @@ PRIORS = {'vs': (2.0, 5.0), 'z': (0.0, 60.0), 'layers': (1, 20),
           'swdnoise_corr': 0.0, 'swdnoise_sigma': (1e-5, 0.05),
           'rfnoise_corr': 0.98, 'rfnoise_sigma': (1e-5, 0.02)}
 
+# each configuration's targets, by the name of their observed data
+# (tests/fixtures/st3_<ref>.dat)
+CONFIGS = {'tutorial': ('rdispph', 'prf'),
+           'tutorial_rl_prf': ('rdispph', 'ldispph', 'prf'),
+           'tutorial_prf_srf': ('rdispph', 'prf', 'srf')}
+TARGETS = {'rdispph': Targets.RayleighDispersionPhase,
+           'ldispph': Targets.LoveDispersionPhase,
+           'prf': Targets.PReceiverFunction,
+           'srf': Targets.SReceiverFunction}
+
 
 def initparams(iters):
     return {'propdist': (0.015, 0.015, 0.015, 0.005, 0.005),
@@ -35,26 +48,19 @@ def initparams(iters):
             'iter_burnin': int(iters), 'iter_main': int(iters)}
 
 
-def _fixture(name, fixtures):
-    return np.loadtxt(os.path.join(fixtures, name))
-
-
-def joint_target(fixtures=FIXTURES, love=False):
-    """Rayleigh phase and P-RF targets, with Love phase between them
-    when ``love``."""
-    swd = _fixture('st3_rdispph.dat', fixtures)
-    prf = _fixture('st3_prf.dat', fixtures)
-    targets = [Targets.RayleighDispersionPhase(swd[:, 0], swd[:, 1])]
-    if love:
-        lov = _fixture('st3_ldispph.dat', fixtures)
-        targets.append(Targets.LoveDispersionPhase(lov[:, 0], lov[:, 1]))
-    targets.append(Targets.PReceiverFunction(prf[:, 0], prf[:, 1]))
+def joint_target(refs=CONFIGS['tutorial'], fixtures=FIXTURES):
+    """The joint target of the observed data ``refs``."""
+    targets = []
+    for ref in refs:
+        obs = np.loadtxt(os.path.join(fixtures, 'st3_%s.dat' % ref))
+        targets.append(TARGETS[ref](obs[:, 0], obs[:, 1]))
     return Targets.JointTarget(targets=targets)
 
 
-def _build(device, iters, nl, love):
+def build_config(name, device, iters=2000, nl=21):
+    """(sampler, evaluator) of the configuration ``name`` of CONFIGS."""
     ip = initparams(iters)
-    joint = joint_target(love=love)
+    joint = joint_target(CONFIGS[name])
     cfg = make_config(PRIORS, ip, [t.noiseref for t in joint.targets],
                       nl=nl)
     ev = build_evaluator(joint, PRIORS, ip, nl, device)
@@ -63,10 +69,16 @@ def _build(device, iters, nl, love):
 
 def build(device, iters=2000, nl=21):
     """(sampler, evaluator) of the main-path configuration."""
-    return _build(device, iters, nl, love=False)
+    return build_config('tutorial', device, iters, nl)
 
 
 def build_rl_prf(device, iters=2000, nl=21):
     """(sampler, evaluator) of ``tutorial_rl_prf``: Rayleigh phase,
     Love phase and P-RF."""
-    return _build(device, iters, nl, love=True)
+    return build_config('tutorial_rl_prf', device, iters, nl)
+
+
+def build_prf_srf(device, iters=2000, nl=21):
+    """(sampler, evaluator) of ``tutorial_prf_srf``: Rayleigh phase,
+    P-RF and S-RF."""
+    return build_config('tutorial_prf_srf', device, iters, nl)

@@ -3,35 +3,49 @@
 // Replaces the TPU kernel bayhunter_tpu/ops/pallas_prep.py:315
 // (_model_kernel with _voronoi_rows :173, _valid_rows :210,
 // _swd_rows :255 and _rf_rows :63, driven by model_operands_t :340)
-// for one flat-earth Rayleigh target and one receiver-function target.
+// for one flat-earth Rayleigh target and one receiver-function operand
+// set per RF target (RfSpecs below: slowness and wave type each, as
+// the TPU kernel's ``specs`` tuple gives them).
 // Plain twin: bayhunter_tpu_torch/ops/prep.py model_operands_plain.
 //
 // K6 replaces the TPU kernel bayhunter_tpu/ops/pallas_prep.py:141
 // (_prep_kernel, body _rf_rows :63, driven by rf_operands_t :436): the
-// same RF rows (rf_rows below, shared with K1) from (NL, C) layer
-// planes, for the cold evaluation.  Plain twin: ops/prep.py
-// rf_operands_plain.
+// same RF rows (flatten and rf_rows below, shared with K1) from (NL, C)
+// layer planes, for the cold evaluation and the batched RF forward.
+// Plain twin: ops/prep.py rf_operands_plain.
 //
 // From the depth-sorted (NL, C) nucleus planes it computes the layered
 // model, the prior validity, the walker planes [d; a; b; rho], cm (0.95
 // 0.90 gtsolh), betmx and the deepest layer, then the rfmini flattening
-// (R = 6371 km), the (NL-1) x 32 welded-interface R/T table and the
-// per-chain RF pack (rows named by pack.cuh's PackLayout), for P
-// incidence.  All outputs are (rows, C): neighbouring threads store neighbouring
-// addresses.
+// (R = 6371 km) and, for each RF target, the (NL-1) x 32
+// welded-interface R/T table and the per-chain RF pack (rows named by
+// pack.cuh's PackLayout; its t0 uses vp for P and vs for SV
+// incidence).  All outputs are (rows, C): neighbouring threads store
+// neighbouring addresses.
 //
-// Bound on the card: stores — 84 + 640 + 88 + 4 floats written per
-// chain against 42 read (K6: 640 + 88 written against 84 read), with a
-// few thousand flops per chain.  The
-// per-chain layer arrays live in local memory (L1-resident).  Left for
-// later work: fusing the operand packs into their consumers so that
-// the 640-row coefficient table never reaches device memory.
+// Bound on the card: stores — 84 + 4 floats and 640 + 88 per RF target
+// written per chain against 42 read (K6: 640 + 88 written against 84
+// read), with a few thousand flops per chain.  The per-chain layer
+// arrays live in local memory (L1-resident).  Left for later work:
+// fusing the operand packs into their consumers so that the 640-row
+// coefficient table never reaches device memory.
 #include <cuda_runtime.h>
 
 #include "cplx.cuh"
 #include "pack.cuh"
 
 #define NL_MAX 64
+#define RF_MAX 4
+
+// K1's RF targets: slowness (s/km), wave type and the output planes of
+// each; ops/_ext.py RfSpecs mirrors it
+struct RfSpecs {
+    int n;
+    float p[RF_MAX];
+    int wave[RF_MAX];
+    float *coefs[RF_MAX];
+    float *pack[RF_MAX];
+};
 
 namespace {
 
@@ -55,15 +69,10 @@ __device__ __forceinline__ float gtsolh(float a, float b) {
     return c;
 }
 
-// RF operands of one chain from its layer arrays (pallas_prep._rf_rows,
-// P incidence): rfmini flattening (R = 6371 km) in place, the
-// (NL-1) x 32 welded-interface R/T table and the per-chain pack (rows
-// named by pack.cuh's PackLayout).  Shared by K1 and K6.
-__device__ __forceinline__ void rf_rows(int nl, int C, int c, float p,
-                                        const PackLayout &lay, float *h,
-                                        float *vp, float *vsl, float *rho,
-                                        float *__restrict__ coefs,
-                                        float *__restrict__ pack) {
+// rfmini flattening (R = 6371 km) of one chain's layer arrays, in place
+// (pallas_prep._rf_rows).  Shared by K1 and K6.
+__device__ __forceinline__ void flatten(int nl, float *h, float *vp,
+                                        float *vsl, float *rho) {
     const float R = 6371.0f;
     float zt = 0.0f;
     for (int i = 0; i < nl; ++i) {
@@ -77,6 +86,19 @@ __device__ __forceinline__ void rf_rows(int nl, int C, int c, float p,
         vsl[i] = vsl[i] * q_top;
         rho[i] = rho[i] / q_top;
     }
+}
+
+// RF operands of one chain from its flattened layer arrays
+// (pallas_prep._rf_rows) at slowness p for incidence wave (0 = P,
+// 1 = SV): the (NL-1) x 32 welded-interface R/T table and the
+// per-chain pack (rows named by pack.cuh's PackLayout).  Shared by K1
+// and K6.
+__device__ __forceinline__ void rf_rows(int nl, int C, int c, float p,
+                                        int wave, const PackLayout &lay,
+                                        const float *h, const float *vp,
+                                        const float *vsl, const float *rho,
+                                        float *__restrict__ coefs,
+                                        float *__restrict__ pack) {
     m4 mats[4];
     int depth = 0;
     for (int l = 0; l < nl - 1; ++l) {
@@ -94,16 +116,18 @@ __device__ __forceinline__ void rf_rows(int nl, int C, int c, float p,
                     || rho[l] != rho[l + 1];
         if (real) depth = l;
     }
+    // direct-arrival time of the incident wave
+    const float *v = wave == 0 ? vp : vsl;
     float t0 = 0.0f;
     for (int i = 0; i < nl; ++i) {
-        float qv = sqrtf(fmaxf(1.0f / (vp[i] * vp[i]) - p * p, 0.0f));
+        float qv = sqrtf(fmaxf(1.0f / (v[i] * v[i]) - p * p, 0.0f));
         t0 = t0 + (i < nl - 1 ? h[i] : -1.0f) * qv;
     }
     m4 hm = displacement(p, vp[0], vsl[0]);
     m4 nt = free_surface(p, vp[0], vsl[0]);
 
     float *pk = pack + c;
-    auto put = [&](int row, float v) { pk[(size_t)row * C] = v; };
+    auto put = [&](int row, float val) { pk[(size_t)row * C] = val; };
     for (int i = 0; i < nl; ++i) {
         put(lay.h + i, h[i]);
         put(lay.vp + i, vp[i]);
@@ -133,14 +157,12 @@ __global__ void prep_kernel(const float *__restrict__ vs_t,
                             const float *__restrict__ z_t,
                             const int *__restrict__ n_in,
                             const float *__restrict__ vpvs_in, int nl, int C,
-                            PriorCfg cfg, float p, PackLayout lay,
+                            PriorCfg cfg, RfSpecs rf, PackLayout lay,
                             bool *__restrict__ valid_out,
                             float *__restrict__ props,
                             float *__restrict__ cm_out,
                             float *__restrict__ bx_out,
-                            float *__restrict__ top_out,
-                            float *__restrict__ coefs,
-                            float *__restrict__ pack) {
+                            float *__restrict__ top_out) {
     int c = blockIdx.x * blockDim.x + threadIdx.x;
     if (c >= C) return;
     float vs[NL_MAX], z[NL_MAX], h[NL_MAX], vp[NL_MAX], vsl[NL_MAX],
@@ -209,7 +231,10 @@ __global__ void prep_kernel(const float *__restrict__ vs_t,
     bx_out[c] = bx;
     top_out[c] = (float)top;
 
-    rf_rows(nl, C, c, p, lay, h, vp, vsl, rho, coefs, pack);
+    flatten(nl, h, vp, vsl, rho);
+    for (int s = 0; s < rf.n; ++s)
+        rf_rows(nl, C, c, rf.p[s], rf.wave[s], lay, h, vp, vsl, rho,
+                rf.coefs[s], rf.pack[s]);
 }
 
 // K6: the RF operands alone, from (NL, C) layer planes.
@@ -217,7 +242,7 @@ __global__ void rf_prep_kernel(const float *__restrict__ h_in,
                                const float *__restrict__ vp_in,
                                const float *__restrict__ vs_in,
                                const float *__restrict__ rho_in, int nl,
-                               int C, float p, PackLayout lay,
+                               int C, float p, int wave, PackLayout lay,
                                float *__restrict__ coefs,
                                float *__restrict__ pack) {
     int c = blockIdx.x * blockDim.x + threadIdx.x;
@@ -230,7 +255,8 @@ __global__ void rf_prep_kernel(const float *__restrict__ h_in,
         vsl[i] = vs_in[k];
         rho[i] = rho_in[k];
     }
-    rf_rows(nl, C, c, p, lay, h, vp, vsl, rho, coefs, pack);
+    flatten(nl, h, vp, vsl, rho);
+    rf_rows(nl, C, c, p, wave, lay, h, vp, vsl, rho, coefs, pack);
 }
 
 }  // namespace
@@ -239,32 +265,35 @@ extern "C" int bh_prep(const float *vs_t, const float *z_t, const int *n,
                        const float *vpvs, int nl, int C, int layermin,
                        int layermax, float vsmin, float vsmax, float zmin,
                        float zmax, float thickmin, float lvz_factor,
-                       float hvz_factor, int use_lvz, int use_hvz, float p,
+                       float hvz_factor, int use_lvz, int use_hvz, RfSpecs rf,
                        PackLayout lay, bool *valid, float *props, float *cm,
-                       float *bx, float *top, float *coefs, float *pack,
-                       cudaStream_t stream) {
-    if (nl > NL_MAX || nl < 2) return (int)cudaErrorInvalidValue;
+                       float *bx, float *top, cudaStream_t stream) {
+    if (nl > NL_MAX || nl < 2 || rf.n < 0 || rf.n > RF_MAX)
+        return (int)cudaErrorInvalidValue;
+    for (int s = 0; s < rf.n; ++s)
+        if (rf.wave[s] != 0 && rf.wave[s] != 1)
+            return (int)cudaErrorInvalidValue;
     if (C == 0) return 0;
     PriorCfg cfg = {layermin, layermax, vsmin, vsmax, zmin, zmax,
                     thickmin, lvz_factor, hvz_factor, use_lvz, use_hvz};
     int threads = 128;
     int blocks = (C + threads - 1) / threads;
     prep_kernel<<<blocks, threads, 0, stream>>>(
-        vs_t, z_t, n, vpvs, nl, C, cfg, p, lay, valid, props, cm, bx, top,
-        coefs, pack);
+        vs_t, z_t, n, vpvs, nl, C, cfg, rf, lay, valid, props, cm, bx, top);
     return (int)cudaGetLastError();
 }
 
 extern "C" int bh_rf_prep(const float *h, const float *vp, const float *vs,
-                          const float *rho, int nl, int C, float p,
+                          const float *rho, int nl, int C, float p, int wave,
                           PackLayout lay, float *coefs, float *pack,
                           cudaStream_t stream) {
-    if (nl > NL_MAX || nl < 2) return (int)cudaErrorInvalidValue;
+    if (nl > NL_MAX || nl < 2 || (wave != 0 && wave != 1))
+        return (int)cudaErrorInvalidValue;
     if (C == 0) return 0;
     int threads = 128;
     int blocks = (C + threads - 1) / threads;
     rf_prep_kernel<<<blocks, threads, 0, stream>>>(h, vp, vs, rho, nl, C, p,
-                                                   lay, coefs, pack);
+                                                   wave, lay, coefs, pack);
     return (int)cudaGetLastError();
 }
 

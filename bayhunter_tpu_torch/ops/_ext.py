@@ -43,34 +43,49 @@ _F = ctypes.c_float
 
 class PackLayout(ctypes.Structure):
     """``struct PackLayout`` of ``csrc/pack.cuh``: the RF pack's row
-    offsets, passed by value to K1 and K3 (see ``rf.pack_offsets``)."""
+    offsets, passed by value to K1, K3 and K6 (see
+    ``rf.pack_offsets``)."""
     _fields_ = [(name, _I) for name in ('h', 'vp', 'vs', 'p', 't0', 'hmat',
                                         'nt', 'depth', 'rows')]
+
+
+RF_MAX = 4      # RF targets K1 serves (csrc/prep.cu RF_MAX)
+
+
+class RfSpecs(ctypes.Structure):
+    """``struct RfSpecs`` of ``csrc/prep.cu``: K1's RF targets, each a
+    slowness, a wave type and its (coefs, pack) output planes."""
+    _fields_ = [('n', _I), ('p', _F * RF_MAX), ('wave', _I * RF_MAX),
+                ('coefs', _P * RF_MAX), ('pack', _P * RF_MAX)]
 
 
 SIGNATURES = {
     # K1: vs_t, z_t, n, vpvs | nl, C | layermin, layermax | vsmin,
     # vsmax, zmin, zmax, thickmin, lvz_factor, hvz_factor | use_lvz,
-    # use_hvz | p, layout | valid, props, cm, bx, top, coefs, pack |
-    # stream
+    # use_hvz | rf specs, layout | valid, props, cm, bx, top | stream
     'bh_prep': [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
-                _F, _I, _I, _F, PackLayout, _P, _P, _P, _P, _P, _P, _P,
-                _P],
+                _F, _I, _I, RfSpecs, PackLayout, _P, _P, _P, _P, _P, _P],
     # K2: props, omegas, c_prev, cm, bx, top, slope_prev | nl, C, R,
     # max_steps, nbisect, newton_iters, newton_maxshift, has_slope,
     # iwave | c, found, slope | stream
     'bh_walk': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                 _I, _I, _P, _P, _P, _P],
-    # K3: coefs, pack, layout | nl, C, F, nsamp | dw | czr, czi, crr,
-    # cri | stream
-    'bh_resp': [_P, _P, PackLayout, _I, _I, _I, _I, _F, _P, _P, _P, _P,
+    # K3: coefs, pack, layout | nl, C, F, nsamp, wave | dw | czr, czi,
+    # crr, cri | stream
+    'bh_resp': [_P, _P, PackLayout, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P,
                 _P],
+    # K3r: coefs, pack, qp, qs, layout | nl, C, F, nsamp, wave | dw,
+    # wref | czr, czi, crr, cri | stream
+    'bh_resp_q': [_P, _P, _P, _P, PackLayout, _I, _I, _I, _I, _I, _F, _F,
+                  _P, _P, _P, _P, _P],
     # K4: wvno, omega, d, a, b, rho | nl, C, L | out | stream
     'bh_secular4': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     # K5: wvno, omega, d, b, rho | nl, C, L | out | stream
     'bh_secular1': [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
-    # K6: h, vp, vs, rho | nl, C | p, layout | coefs, pack | stream
-    'bh_rf_prep': [_P, _P, _P, _P, _I, _I, _F, PackLayout, _P, _P, _P],
+    # K6: h, vp, vs, rho | nl, C | p, wave, layout | coefs, pack |
+    # stream
+    'bh_rf_prep': [_P, _P, _P, _P, _I, _I, _F, _I, PackLayout, _P, _P,
+                   _P],
 }
 
 _lock = threading.Lock()

@@ -2,18 +2,21 @@
 and plain twins.
 
 Mirrors ``bayhunter_tpu/ops/pallas_prep.py`` (``_model_kernel``,
-``model_operands_t``) for the main path's target pair: one flat-earth
-Rayleigh target and one P receiver-function target with flattening.
-From depth-sorted (NL, C) nucleus planes it computes, per chain:
+``model_operands_t``) for flat-earth dispersion targets and any number
+(up to ``_ext.RF_MAX``) of receiver-function targets with flattening,
+each given as a (slowness, wave type) spec as the JAX kernel's
+``specs`` tuple gives it.  From depth-sorted (NL, C) nucleus planes it
+computes, per chain:
 
   * the prior validity (layer count, thickness, vs bounds, interface
     depths, optional low/high-velocity-zone limits);
   * the walker planes [d; a; b; rho] (4 NL, C), the lower bound cm,
     betmx and the deepest layer ``top`` (-1 for a pure halfspace);
-  * the rfmini-flattened RF operands: the ((NL-1)*32, C) interface
-    table (row l*32 + m*8 + e*2 + c for matrix m in (rd, td, ru, tu),
-    entry e in (11, 12, 21, 22), re/im c) and the per-chain pack
-    (rows named by ``rf.pack_offsets``).
+  * per RF target, the rfmini-flattened RF operands: the ((NL-1)*32, C)
+    interface table (row l*32 + m*8 + e*2 + c for matrix m in (rd, td,
+    ru, tu), entry e in (11, 12, 21, 22), re/im c) and the per-chain
+    pack (rows named by ``rf.pack_offsets``; its t0 is the direct P or
+    S arrival time).
 
 K6 (``rf_operands``) computes the last item from (NL, C) layer planes
 for the cold evaluation, as ``pallas_prep.rf_operands_t`` does; both
@@ -56,7 +59,7 @@ def _stack_pairs(mats):
     return out.reshape(-1, out.shape[-1])
 
 
-def model_operands_plain(vs_t, z_t, n, vpvs, priors, p):
+def model_operands_plain(vs_t, z_t, n, vpvs, priors, rf_specs):
     """Plain twin of :func:`model_operands` (same arguments/results)."""
     nl, C = vs_t.shape
     dt, dev = vs_t.dtype, vs_t.device
@@ -69,10 +72,11 @@ def model_operands_plain(vs_t, z_t, n, vpvs, priors, p):
                      dim=0)
     props = torch.cat([h, vp, vs, rho], dim=0)
     return (valid, (props, cm, bx, top),
-            rf_operands_plain(h, vp, vs, rho, p))
+            tuple(rf_operands_plain(h, vp, vs, rho, p, wave)
+                  for p, wave in rf_specs))
 
 
-def rf_operands_plain(h, vp, vs, rho, p):
+def rf_operands_plain(h, vp, vs, rho, p, wave_type=_rf.P_WAVE):
     """Plain twin of :func:`rf_operands` (same arguments/results)."""
     nl, C = h.shape
     dt, dev = h.dtype, h.device
@@ -81,7 +85,8 @@ def rf_operands_plain(h, vp, vs, rho, p):
     hf, vpf, vsf, rhof = _rf.flatten_model_T(h, vp, vs, rho)
     coefs = _stack_pairs(_rf.interface_coeffs(
         p_t, vpf[:-1], vsf[:-1], rhof[:-1], vpf[1:], vsf[1:], rhof[1:]))
-    qv = torch.sqrt(torch.clamp(1.0 / (vpf * vpf) - p_t * p_t, min=0.0))
+    v = vpf if wave_type == _rf.P_WAVE else vsf
+    qv = torch.sqrt(torch.clamp(1.0 / (v * v) - p_t * p_t, min=0.0))
     sgn_h = torch.cat([hf[:-1], -torch.ones_like(hf[:1])], dim=0)
     t0 = _vor.running_sum(sgn_h * qv)[-1]
     real = ((hf[:-1] > 0.0) | (vpf[:-1] != vpf[1:]) | (vsf[:-1] != vsf[1:])
@@ -102,16 +107,17 @@ def rf_operands_plain(h, vp, vs, rho, p):
     return coefs, pack
 
 
-def model_operands(vs_t, z_t, n, vpvs, priors, p):
+def model_operands(vs_t, z_t, n, vpvs, priors, rf_specs):
     """Model operands of depth-sorted (NL, C) nuclei.
 
     ``n`` (C,) int32 nucleus counts, ``vpvs`` (C,); ``priors`` a
-    :class:`ModelPriors`; ``p`` the RF slowness in s/km.  Returns
-    ``(valid, (props, cm, bx, top), (coefs, pack))``: validity (C,)
-    bool, the SWD walker operands and the RF operands.  CPU tensors
-    run the plain twin; CUDA tensors launch the kernel."""
+    :class:`ModelPriors`; ``rf_specs`` one (slowness in s/km, wave
+    type) pair per RF target.  Returns ``(valid, (props, cm, bx, top),
+    rf)``: validity (C,) bool, the SWD walker operands and a tuple of
+    one (coefs, pack) per RF spec.  CPU tensors run the plain twin;
+    CUDA tensors launch the kernel."""
     if vs_t.device.type == 'cpu':
-        return model_operands_plain(vs_t, z_t, n, vpvs, priors, p)
+        return model_operands_plain(vs_t, z_t, n, vpvs, priors, rf_specs)
     dev = vs_t.device
     nl, C = vs_t.shape
     f32 = torch.float32
@@ -119,12 +125,22 @@ def model_operands(vs_t, z_t, n, vpvs, priors, p):
     _ext.require(z_t, 'z_t', dev, f32, (nl, C))
     _ext.require(n, 'n', dev, torch.int32, (C,))
     _ext.require(vpvs, 'vpvs', dev, f32, (C,))
+    if len(rf_specs) > _ext.RF_MAX:
+        raise ValueError('%d RF targets, the kernel serves at most %d'
+                         % (len(rf_specs), _ext.RF_MAX))
     off = _rf.pack_offsets(nl)
     valid = torch.empty(C, dtype=torch.bool, device=dev)
     props = torch.empty((4 * nl, C), dtype=f32, device=dev)
     cm, bx, top = (torch.empty(C, dtype=f32, device=dev) for _ in range(3))
-    coefs = torch.empty(((nl - 1) * 32, C), dtype=f32, device=dev)
-    pack = torch.empty((off['rows'], C), dtype=f32, device=dev)
+    rf = tuple((torch.empty(((nl - 1) * 32, C), dtype=f32, device=dev),
+                torch.empty((off['rows'], C), dtype=f32, device=dev))
+               for _ in rf_specs)
+    specs = _ext.RfSpecs(n=len(rf_specs))
+    for s, ((p, wave), (coefs, pack)) in enumerate(zip(rf_specs, rf)):
+        specs.p[s] = float(p)
+        specs.wave[s] = _rf.wave_index(wave)
+        specs.coefs[s] = coefs.data_ptr()
+        specs.pack[s] = pack.data_ptr()
     lib = _ext.load()
     with torch.cuda.device(dev):
         rc = lib.bh_prep(
@@ -134,24 +150,24 @@ def model_operands(vs_t, z_t, n, vpvs, priors, p):
             priors.thickmin,
             1.0 - (priors.lvz or 0.0), 1.0 + (priors.hvz or 0.0),
             int(priors.lvz is not None), int(priors.hvz is not None),
-            float(p), _ext.pack_layout(off), _ext.ptr(valid),
+            specs, _ext.pack_layout(off), _ext.ptr(valid),
             _ext.ptr(props), _ext.ptr(cm), _ext.ptr(bx), _ext.ptr(top),
-            _ext.ptr(coefs), _ext.ptr(pack), _ext.stream(dev))
+            _ext.stream(dev))
     _ext.check(rc, 'prep')
     model_operands.launches += 1
-    return valid, (props, cm, bx, top), (coefs, pack)
+    return valid, (props, cm, bx, top), rf
 
 
 model_operands.launches = 0
 
 
-def rf_operands(h, vp, vs, rho, p):
+def rf_operands(h, vp, vs, rho, p, wave_type=_rf.P_WAVE):
     """The RF operands (coefs, pack) of (NL, C) layer planes: rfmini
     flattening, the ((NL-1)*32, C) interface tables and the per-chain
-    pack for P incidence at slowness ``p`` (s/km).  CPU tensors run the
-    plain twin; CUDA tensors launch K6."""
+    pack for incidence ``wave_type`` at slowness ``p`` (s/km).  CPU
+    tensors run the plain twin; CUDA tensors launch K6."""
     if h.device.type == 'cpu':
-        return rf_operands_plain(h, vp, vs, rho, p)
+        return rf_operands_plain(h, vp, vs, rho, p, wave_type)
     dev = h.device
     nl, C = h.shape
     f32 = torch.float32
@@ -164,8 +180,8 @@ def rf_operands(h, vp, vs, rho, p):
     with torch.cuda.device(dev):
         rc = lib.bh_rf_prep(
             _ext.ptr(h), _ext.ptr(vp), _ext.ptr(vs), _ext.ptr(rho), nl, C,
-            float(p), _ext.pack_layout(off), _ext.ptr(coefs), _ext.ptr(pack),
-            _ext.stream(dev))
+            float(p), _rf.wave_index(wave_type), _ext.pack_layout(off),
+            _ext.ptr(coefs), _ext.ptr(pack), _ext.stream(dev))
     _ext.check(rc, 'rf_prep')
     rf_operands.launches += 1
     return coefs, pack

@@ -12,13 +12,20 @@ Mirrors ``bayhunter_tpu/ops/rf.py`` and the pair arithmetic of
     surface ``free_surface`` and displacement matrix ``displacement``
     (``pallas_rf.py:155-264``);
   * ``flatten_model_T``: rfmini earth flattening (R = 6371 km);
-  * ``transmission_response``: the P-wave, uniform-Q (Qp 500, Qs 225,
-    reference frequency 1 Hz) response (``rf.py:326`` with the shared
-    1/u^2 phase factor of ``pallas_rf.py:354-380``) on the model
-    kernel's packed operands — the plain twin of kernel K3
-    (``ops/resp.py``) and the cold-init response;
-  * ``deconvolve`` (``rf.py:512``), the Gauss cutoff ``gauss_cut`` and
-    the folded cos/sin inverse-DFT tables (``rf.py:666-711``).
+  * ``transmission_response``: the uniform-Q (Qp 500, Qs 225, reference
+    frequency 1 Hz) response (``rf.py:326`` with the shared 1/u^2 phase
+    factor of ``pallas_rf.py:354-380``) on the model kernel's packed
+    operands, P or SV incidence — the plain twin of kernel K3
+    (``ops/resp.py``);
+  * ``transmission_response_q``: the same with per-layer Qp/Qs planes
+    and any reference frequency (``pallas_rf.py:382-388``, ``:804-811``)
+    — the plain twin of kernel K3r;
+  * ``deconvolve`` (``rf.py:512``, the SV swap included), the Gauss
+    cutoff ``gauss_cut`` and the folded cos/sin inverse-DFT tables
+    (``rf.py:666-711``);
+  * ``synrf_batch`` and ``synrf``: the public batched RF forward of
+    (C, NL) models with scalar or per-layer Q (``rf.py:602-715``) on
+    kernels K6 and K3 or K3r.
 """
 
 import numpy as np
@@ -26,10 +33,19 @@ import torch
 
 EARTH_R = 6371.0          # rfmini's radius (not the SWD solver's 6370)
 DEG_PER_KM = 0.00899
-# the main path's response: P incidence, uniform Q, 1 Hz reference
-# (csrc/resp.cu holds the same constants)
+P_WAVE, SV_WAVE = 0, 1    # incidence of the RF's wave
+# K3's uniform Q and reference frequency (csrc/resp.cu holds the same
+# constants)
 QP_UNIFORM, QS_UNIFORM = 500.0, 225.0
 FREF = 1.0
+
+
+def wave_index(wave_type):
+    """``wave_type`` as the kernels take it, 0 (P) or 1 (SV)."""
+    if wave_type not in (P_WAVE, SV_WAVE):
+        raise ValueError('wave_type %r is neither P (0) nor SV (1)'
+                         % (wave_type,))
+    return int(wave_type)
 
 
 # ----------------------------------------------------------------------
@@ -247,14 +263,15 @@ def _pairs4(rows):
     return tuple((rows[2 * m], rows[2 * m + 1]) for m in range(4))
 
 
-def frequency_axis(nfreq_lanes, nsamp, fsamp, device):
-    """(w, lgw) of the first ``nfreq_lanes`` frequencies, float32,
-    with the log-frequency term of Mueller eq. 132."""
+def frequency_axis(nfreq_lanes, nsamp, fsamp, device, fref=FREF,
+                   dtype=torch.float32):
+    """(w, lgw) of the first ``nfreq_lanes`` frequencies, with the
+    log-frequency term ln(w / wref) of Mueller eq. 132 at the
+    reference frequency ``fref`` (Hz)."""
     jf = torch.arange(nfreq_lanes, device=device).clamp(
-        max=nsamp // 2).to(torch.float32)
+        max=nsamp // 2).to(dtype)
     w = jf * (2.0 * np.pi * fsamp / nsamp)
-    wref = torch.tensor(2.0 * np.pi * FREF, dtype=torch.float32,
-                        device=device)
+    wref = torch.tensor(2.0 * np.pi * fref, dtype=dtype, device=device)
     lgw = torch.where(jf > 0, torch.log(torch.clamp(w, min=1e-30) / wref),
                       torch.zeros_like(w))
     return w, lgw
@@ -263,50 +280,39 @@ def frequency_axis(nfreq_lanes, nsamp, fsamp, device):
 def _inv_u2(lgw, q):
     """1/u(w)^2 of the uniform-Q complex velocity factor
     u = 1 + lgw/(pi Q) + i/(2Q)."""
-    qf = torch.tensor(q, dtype=torch.float32, device=lgw.device)
-    pi = torch.tensor(np.pi, dtype=torch.float32, device=lgw.device)
+    qf = torch.tensor(q, dtype=lgw.dtype, device=lgw.device)
+    pi = torch.tensor(np.pi, dtype=lgw.dtype, device=lgw.device)
     u = (1.0 + lgw / (pi * qf), torch.full_like(lgw, 0.5) / qf)
     return _cinv(_cmul(u, u))
 
 
-def transmission_response(coefs, pack, nfreq_lanes, nsamp, fsamp):
-    """(cz, cr) P-wave responses as four (C, F) float32 planes
-    (cz re, cz im, cr re, cr im) for the first F = ``nfreq_lanes``
-    frequencies.
+def _phase_of(x, w, h_l):
+    """exp(-i w h qc) of the vertical slowness qc = sqrt(x)."""
+    qc = _csqrt(x)
+    return _cexp((w * h_l * qc[1], -w * h_l * qc[0]))
 
-    ``coefs`` ((NL-1)*32, C) interface tables (row l*32 + m*8 + e*2 +
-    c); ``pack`` (rows, C) per-chain operands (:func:`pack_offsets`).
-    Layer 0 (free surface on top) always runs; layers 1..depth follow,
-    deeper slots are identities and are skipped per chain."""
+
+def _transmit(coefs, pack, w, phase_at, depth, wave_type):
+    """The Mueller recursion shared by both responses: layer 0 (free
+    surface on top) always runs, layers 1..``depth`` (C, 1) follow,
+    deeper slots are identities and are skipped per chain;
+    ``phase_at(i)`` gives layer i's (e1, e2).  Returns the (cz, cr)
+    planes of incidence ``wave_type``."""
     nl = coefs.shape[0] // 32 + 1
     off = pack_offsets(nl)
-    w, lgw = frequency_axis(nfreq_lanes, nsamp, fsamp, coefs.device)
-    w = w[None, :]
-    iu2_p = tuple(x[None, :] for x in _inv_u2(lgw, QP_UNIFORM))
-    iu2_s = tuple(x[None, :] for x in _inv_u2(lgw, QS_UNIFORM))
 
     def row(k):
         return pack[k][:, None]                            # (C, 1)
 
-    p = row(off['p'])
     t0 = row(off['t0'])
     hmat = _pairs4([row(off['hmat'] + k) for k in range(8)])
     nt_surf = _pairs4([row(off['nt'] + k) for k in range(8)])
-    depth = pack[off['depth']][:, None]
-
-    def phase(v, h_l, iu2):
-        r = 1.0 / (v * v)
-        qc = _csqrt((iu2[0] * r - p * p, iu2[1] * r))
-        return _cexp((w * h_l * qc[1], -w * h_l * qc[0]))
 
     def layer_parts(i):
         base = i * 32
         mats = tuple(_pairs4([coefs[base + m * 8 + k][:, None]
                               for k in range(8)]) for m in range(4))
-        h_l = row(off['h'] + i)
-        e1 = phase(row(off['vp'] + i), h_l, iu2_p)
-        e2 = phase(row(off['vs'] + i), h_l, iu2_s)
-        return mats, e1, e2
+        return (mats,) + tuple(phase_at(i))
 
     def sandwich(nt, e1, e2):
         e12 = _cmul(e1, e2)
@@ -339,14 +345,89 @@ def transmission_response(coefs, pack, nfreq_lanes, nsamp, fsamp):
         x, g, ru, td_prev = (sel(a, b) for a, b in
                              zip(new, (x, g, ru, td_prev)))
 
+    # column wave_type of 2 hmat g: rows 0 (R) and 1 (Z)
     t_full = _m4mul(hmat, g)
-    cr = _cscale(2.0, t_full[0])
-    cz = _cscale(2.0, t_full[2])
+    cr = _cscale(2.0, t_full[0 + wave_type])
+    cz = _cscale(2.0, t_full[2 + wave_type])
     wt0 = w * t0
     qq = (torch.cos(wt0), torch.sin(wt0))
     cz = _cmul(cz, qq)
     cr = _cmul(cr, qq)
     return cz[0], cz[1], cr[0], cr[1]
+
+
+def transmission_response(coefs, pack, nfreq_lanes, nsamp, fsamp,
+                          wave_type=P_WAVE):
+    """(cz, cr) responses for incidence ``wave_type`` under uniform Q
+    (Qp 500, Qs 225, 1 Hz reference) as four (C, F) planes (cz re,
+    cz im, cr re, cr im) for the first F = ``nfreq_lanes``
+    frequencies — the plain twin of kernel K3.
+
+    ``coefs`` ((NL-1)*32, C) interface tables (row l*32 + m*8 + e*2 +
+    c); ``pack`` (rows, C) per-chain operands (:func:`pack_offsets`)."""
+    nl = coefs.shape[0] // 32 + 1
+    off = pack_offsets(nl)
+    w, lgw = frequency_axis(nfreq_lanes, nsamp, fsamp, coefs.device,
+                            dtype=coefs.dtype)
+    w = w[None, :]
+    iu2_p = tuple(x[None, :] for x in _inv_u2(lgw, QP_UNIFORM))
+    iu2_s = tuple(x[None, :] for x in _inv_u2(lgw, QS_UNIFORM))
+    p = pack[off['p']][:, None]
+
+    def phase(v, h_l, iu2):
+        r = 1.0 / (v * v)
+        return _phase_of((iu2[0] * r - p * p, iu2[1] * r), w, h_l)
+
+    def phase_at(i):
+        h_l = pack[off['h'] + i][:, None]
+        return (phase(pack[off['vp'] + i][:, None], h_l, iu2_p),
+                phase(pack[off['vs'] + i][:, None], h_l, iu2_s))
+
+    return _transmit(coefs, pack, w, phase_at,
+                     pack[off['depth']][:, None], wave_type)
+
+
+def q_depth(depth, qp, qs):
+    """(C,) skip depths raised to the deepest slot whose lower
+    interface has a Qp or Qs contrast (``pallas_rf.py:804-811``);
+    ``depth`` the pack's row, ``qp``/``qs`` (NL, C) planes."""
+    nl = qp.shape[0]
+    idx = torch.arange(nl - 1, device=qp.device, dtype=depth.dtype)[:, None]
+    contrast = (qp[:-1] != qp[1:]) | (qs[:-1] != qs[1:])
+    deepest = torch.amax(torch.where(contrast, idx, torch.zeros_like(idx)),
+                         dim=0)
+    return torch.maximum(depth, deepest)
+
+
+def transmission_response_q(coefs, pack, qp, qs, nfreq_lanes, nsamp, fsamp,
+                            wave_type=P_WAVE, fref=FREF):
+    """:func:`transmission_response` with per-layer quality factors —
+    the plain twin of kernel K3r.  ``qp``, ``qs`` (NL, C) planes;
+    ``fref`` the reference frequency (Hz) of the anelastic dispersion.
+    Each layer's phase uses its complex velocity
+    vc = v (1 + ln(w/wref)/(pi Q)) + i v/(2Q) (``pallas_rf.py:382-388``),
+    and the skip depth counts Q contrasts (:func:`q_depth`)."""
+    nl = coefs.shape[0] // 32 + 1
+    off = pack_offsets(nl)
+    w, lgw = frequency_axis(nfreq_lanes, nsamp, fsamp, coefs.device, fref,
+                            dtype=coefs.dtype)
+    w, lgw = w[None, :], lgw[None, :]
+    p = pack[off['p']][:, None]
+    pi = torch.tensor(np.pi, dtype=coefs.dtype, device=coefs.device)
+
+    def phase(v, q, h_l):
+        piq = pi * q
+        vc = (v * (1.0 + lgw / piq), v * (torch.full_like(q, 0.5) / q))
+        iv2 = _cinv(_cmul(vc, vc))
+        return _phase_of((iv2[0] - p * p, iv2[1]), w, h_l)
+
+    def phase_at(i):
+        h_l = pack[off['h'] + i][:, None]
+        return (phase(pack[off['vp'] + i][:, None], qp[i][:, None], h_l),
+                phase(pack[off['vs'] + i][:, None], qs[i][:, None], h_l))
+
+    depth = q_depth(pack[off['depth']], qp, qs)[:, None]
+    return _transmit(coefs, pack, w, phase_at, depth, wave_type)
 
 
 # ----------------------------------------------------------------------
@@ -387,11 +468,13 @@ def dft_tables(cut, nsamp, fsamp, tshift, gauss_a, device):
                          device=device))
 
 
-def deconvolve(czr, czi, crr, cri, p, vp_top, vs_top):
+def deconvolve(czr, czi, crr, cri, p, vp_top, vs_top, wave_type=P_WAVE):
     """Z/R -> P/SV rotation with the near-surface velocities, then the
     spectral division cr conj(cz) / |cz|^2 (greens.cpp:343-398; the
-    waterlevel is not applied, as in the reference).  ``p``,
-    ``vp_top``, ``vs_top``: (C,).  Returns the (re, im) planes."""
+    waterlevel is not applied, as in the reference); for SV incidence
+    the rotated P and SV traces swap roles (greens.cpp:369-373).
+    ``p``, ``vp_top``, ``vs_top``: (C,).  Returns the (re, im)
+    planes."""
     p, vp0, vs0 = p[:, None], vp_top[:, None], vs_top[:, None]
     fa = 1.0 / (vp0 * vp0) - p * p
     fb = 1.0 / (vs0 * vs0) - p * p
@@ -406,27 +489,35 @@ def deconvolve(czr, czi, crr, cri, p, vp_top, vs_top):
               for cz_, cr_ in ((czr, crr), (czi, cri)))
     rr, ri = (torch.where(do, cz_ * m21 + cr_ * m22, cr_)
               for cz_, cr_ in ((czr, crr), (czi, cri)))
+    if wave_type == SV_WAVE:
+        (zr, zi), (rr, ri) = (rr, ri), (zr, zi)
     denom = zr * zr + zi * zi
     return (rr * zr + ri * zi) / denom, (ri * zr - rr * zi) / denom
 
 
-def receiver_function(response, pack, nl, nsamp, fsamp, tshift, gauss_a,
-                      dft=None):
-    """RF time series (C, nsamp) from the response planes of
-    :func:`transmission_response` and the (rows, C) pack of an NL-slot
-    model: rotation and spectral division, then the inverse transform —
-    the folded tables ``dft`` (:func:`dft_tables`) over the Gauss-cut
-    lanes, or without them the Gauss/shift factor and ``irfft`` over all
-    nsamp//2 + 1 lanes."""
-    vp_top, vs_top = surface_velocities(pack, nl)
-    fr, fi = deconvolve(*response, pack[pack_offsets(nl)['p']], vp_top,
-                        vs_top)
+def inverse_transform(fr, fi, nsamp, fsamp, tshift, gauss_a, dft=None):
+    """RF time series (C, nsamp) of the deconvolved spectrum's (re, im)
+    planes: the folded tables ``dft`` (:func:`dft_tables`) over the
+    Gauss-cut lanes, or without them the Gauss/shift factor and
+    ``irfft`` (the lanes beyond the planes' width taken as zero)."""
     if dft is not None:
         return fr @ dft[0] + fi @ dft[1]
-    cq = torch.tensor(gauss_shift_coeffs(fr.shape[-1], nsamp, fsamp,
-                                         tshift, gauss_a),
-                      dtype=torch.complex64, device=fr.device)
+    cdt = torch.complex128 if fr.dtype == torch.float64 else torch.complex64
+    cq = torch.tensor(gauss_shift_coeffs(fr.shape[-1], nsamp, fsamp, tshift,
+                                         gauss_a), dtype=cdt, device=fr.device)
     return torch.fft.irfft(torch.complex(fr, fi) * cq, nsamp, dim=-1)
+
+
+def receiver_function(response, pack, nl, nsamp, fsamp, tshift, gauss_a,
+                      dft=None, wave_type=P_WAVE):
+    """RF time series (C, nsamp) from the response planes of
+    :func:`transmission_response` and the (rows, C) pack of an NL-slot
+    model: rotation with the pack's surface velocities and spectral
+    division (:func:`deconvolve`), then :func:`inverse_transform`."""
+    vp_top, vs_top = surface_velocities(pack, nl)
+    fr, fi = deconvolve(*response, pack[pack_offsets(nl)['p']], vp_top,
+                        vs_top, wave_type)
+    return inverse_transform(fr, fi, nsamp, fsamp, tshift, gauss_a, dft)
 
 
 def surface_velocities(pack, nl):
@@ -438,3 +529,86 @@ def surface_velocities(pack, nl):
     vpvs0 = vp0 / vs0
     poisson = (2.0 - vpvs0 * vpvs0) / (2.0 - 2.0 * vpvs0 * vpvs0)
     return vs0 * torch.sqrt((1.0 - poisson) / (0.5 - poisson)), vs0
+
+
+# ----------------------------------------------------------------------
+# the public batched forward
+# ----------------------------------------------------------------------
+
+def _on_device(x, dev, shape=None):
+    """``x`` (array, tensor or scalar) as a float32 tensor on ``dev``,
+    broadcast to ``shape`` when given."""
+    t = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    return t if shape is None else t.expand(shape).contiguous()
+
+
+def synrf_batch(h, vp, vs, rho, qp, qs, p_sdeg, gauss_a, nsamp, fsamp,
+                tshift, nsv, poisson, wave_type=P_WAVE, fref=FREF,
+                flattening=True, device=None):
+    """Receiver functions (C, nsamp) float32 of C layered models.
+
+    ``h``, ``vp``, ``vs``, ``rho``: (C, NL) padded, unflattened layer
+    arrays (halfspace last, zero-thickness padding); ``qp``, ``qs``:
+    (C, NL) quality factors or scalars; ``p_sdeg`` slowness (s/deg);
+    ``gauss_a`` the Gauss low-pass parameter; ``nsamp``, ``fsamp``,
+    ``tshift`` the time axis; ``nsv``, ``poisson``: per chain (or
+    scalar) near-surface S velocity and Poisson ratio of the Z/R
+    rotation; ``wave_type`` P_WAVE or SV_WAVE; ``fref`` the reference
+    frequency (Hz) of the anelastic dispersion.
+
+    The models run as (NL, C) planes through K6 (flattening, interface
+    tables, per-chain scalars), then K3r — or K3, which holds the
+    default Qp 500, Qs 225 at 1 Hz, for exactly those scalars — over
+    the Gauss-cut frequencies, then the deconvolution and the folded
+    inverse DFT, as ``bayhunter_tpu/ops/rf.py`` ``synrf_batch`` does.
+    Arrays and scalars go to ``device`` (default: CUDA; tensors stay
+    on their own device unless ``device`` is given); CPU tensors run
+    the kernels' plain twins.  ``flattening=False`` is not ported."""
+    from bayhunter_tpu_torch.ops import prep, resp
+
+    if not flattening:
+        raise NotImplementedError('synrf_batch without earth flattening '
+                                  'is not ported yet')
+    if device is not None:
+        dev = torch.device(device)
+    else:
+        dev = h.device if torch.is_tensor(h) else torch.device('cuda')
+    h_t, vp_t, vs_t, rho_t = (_on_device(x, dev).T.contiguous()
+                              for x in (h, vp, vs, rho))
+    nl, C = h_t.shape
+    p_skm = float(p_sdeg) * DEG_PER_KM
+    coefs, pack = prep.rf_operands(h_t, vp_t, vs_t, rho_t, p_skm, wave_type)
+    cut = gauss_cut(nsamp, fsamp, gauss_a)
+    scalar_q = isinstance(qp, (int, float)) and isinstance(qs, (int, float))
+    if scalar_q and (float(qp), float(qs), float(fref)) == (
+            QP_UNIFORM, QS_UNIFORM, FREF):
+        response = resp.resp(coefs, pack, cut, nsamp, fsamp, wave_type)
+    else:
+        qp_t, qs_t = (_on_device(q, dev, (nl, C)) if isinstance(q, (int,
+                                                                    float))
+                      else _on_device(q, dev).T.contiguous()
+                      for q in (qp, qs))
+        response = resp.resp_q(coefs, pack, qp_t, qs_t, cut, nsamp, fsamp,
+                               wave_type, fref)
+    nsv_c, poisson_c = (_on_device(x, dev, (C,)) for x in (nsv, poisson))
+    vp_top = nsv_c * torch.sqrt((1.0 - poisson_c) / (0.5 - poisson_c))
+    fr, fi = deconvolve(*response, pack[pack_offsets(nl)['p']], vp_top,
+                        nsv_c, wave_type)
+    dft = (dft_tables(cut, nsamp, fsamp, tshift, gauss_a, dev)
+           if cut < nsamp // 2 + 1 else None)
+    return inverse_transform(fr, fi, nsamp, fsamp, tshift, gauss_a, dft)
+
+
+def synrf(h, vp, vs, rho, qp, qs, p_sdeg, gauss_a, nsamp, fsamp, tshift,
+          nsv, poisson, wave_type=P_WAVE, fref=FREF, flattening=True,
+          device=None):
+    """The receiver function (nsamp,) of one model of (NL,) layer
+    arrays: :func:`synrf_batch` with C = 1 (``qp``, ``qs`` (NL,) or
+    scalars).  Returns the RF only, where the JAX package's ``synrf``
+    also returns the filtered Z and R traces."""
+    def one(x):
+        return x if isinstance(x, (int, float)) else (
+            x[None] if torch.is_tensor(x) else np.asarray(x)[None])
+    return synrf_batch(one(h), one(vp), one(vs), one(rho), one(qp),
+                       one(qs), p_sdeg, gauss_a, nsamp, fsamp, tshift, nsv,
+                       poisson, wave_type, fref, flattening, device)[0]

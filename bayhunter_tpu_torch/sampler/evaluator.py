@@ -11,16 +11,18 @@ slopes (0.0 = no cache), which seed the Newton recentering of vs moves
 only.
 
 Ported target kinds: fundamental-mode Rayleigh and Love phase
-dispersion on a flat earth (at most 60 periods each) and P receiver
-functions, with the uncorrelated law (corr fixed to 0, no data errors)
-or the whitened Gaussian law (RF corr fixed nonzero).  At most one RF
-target, because the model kernel builds the operands of one slowness.
+dispersion on a flat earth (at most 60 periods each) and P and S
+receiver functions, with the uncorrelated law (corr fixed to 0, no data
+errors) or the whitened Gaussian law (RF corr fixed nonzero).  Each RF
+target has its own slowness, wave type and Gauss-cut tables, and the
+model kernel builds one operand set per RF target.
 
 Kernels on each path: the cold evaluation runs K4 (Rayleigh) or K5
 (Love) for every secular evaluation of its counting search and
-refinement, and K6 then K3 over all nsamp/2 + 1 frequencies for the RF
-target; a warm step runs K1, K2 per dispersion target (both wave types
-on K1's planes) and K3 over the Gauss-cut frequencies.
+refinement, and K6 then K3 over all nsamp/2 + 1 frequencies for each
+RF target; a warm step runs K1, K2 per dispersion target (both wave
+types on K1's planes) and K3 over the Gauss-cut frequencies per RF
+target.
 """
 
 import numpy as np
@@ -38,6 +40,7 @@ LOGL_SENTINEL = -1e15
 MISFIT_SENTINEL = 1e15
 COLD_CHUNK = 2048       # chains per cold-solve chunk (bounds the
 #                         (C, periods, 64) candidate grids)
+RF_WAVES = {'prf': _rf.P_WAVE, 'srf': _rf.SV_WAVE}
 
 
 def _covariance_kind(target, corr_fixed, corr_value):
@@ -79,10 +82,11 @@ class TargetSpec:
             self.omegas = _swd.angular_frequencies(self.periods, device)
         else:
             mp = target.modelparams
-            if target.ref != 'prf' or mp['nsv'] is not None:
+            if target.ref not in RF_WAVES or mp['nsv'] is not None:
                 raise NotImplementedError(
-                    'only P receiver functions with the top-layer '
+                    'only P and S receiver functions with the top-layer '
                     'rotation velocity are ported')
+            self.wave_type = RF_WAVES[target.ref]
             self.fsamp, self.tshift = target.fsamp, target.tshft
             self.nsamp = target.nsamp
             self.gauss_a = float(mp['gauss'])
@@ -134,12 +138,10 @@ class Evaluator:
             self.specs.append(TargetSpec(
                 target, corr_fixed, float(corr_prior) if corr_fixed
                 else None, rcond, self.device, dof_correction=dof))
-        rfs = [s for s in self.specs if s.kind == 'rf']
-        if len(rfs) > 1:
-            raise NotImplementedError('at most one RF target is ported')
-        # slowness the model kernel builds its RF operands for (unused
-        # without an RF target)
-        self.p_skm = rfs[0].p_skm if rfs else 6.4 * _rf.DEG_PER_KM
+        # the (slowness, wave type) of each RF target, in target order:
+        # the model kernel builds one operand set per entry
+        self.rf_specs = tuple((s.p_skm, s.wave_type) for s in self.specs
+                              if s.kind == 'rf')
         self.priors = _prep.ModelPriors(
             int(priors['layers'][0]), int(priors['layers'][1]),
             float(priors['vs'][0]), float(priors['vs'][1]),
@@ -182,7 +184,8 @@ class Evaluator:
     def _rf_time_series(self, spec, response, pack, cold):
         rf = _rf.receiver_function(response, pack, self.nl, spec.nsamp,
                                    spec.fsamp, spec.tshift, spec.gauss_a,
-                                   None if cold else spec.dft)
+                                   None if cold else spec.dft,
+                                   spec.wave_type)
         y = rf[:, :spec.ndata]
         return y, torch.isfinite(y).all(dim=-1)
 
@@ -216,9 +219,10 @@ class Evaluator:
                 cache.append((cg, roots, slopes))
                 continue
             coefs, pack = _prep.rf_operands(
-                *(x.T.contiguous() for x in (h, vp, vs_l, rho)), spec.p_skm)
+                *(x.T.contiguous() for x in (h, vp, vs_l, rho)), spec.p_skm,
+                spec.wave_type)
             response = _resp.resp(coefs, pack, spec.nsamp // 2 + 1,
-                                  spec.nsamp, spec.fsamp)
+                                  spec.nsamp, spec.fsamp, spec.wave_type)
             y, tvalid = self._rf_time_series(spec, response, pack,
                                              cold=True)
             ys.append(y)
@@ -240,12 +244,12 @@ class Evaluator:
         """Warm evaluation of transposed (NL, C) proposals through the
         three kernels: K1 model operands, K2 walker per dispersion
         target on K1's planes (``warm``: a ``swd.WARM_*`` setting), K3
-        response for the RF target.  The last result is the kernel's
-        prior validity."""
+        response per RF target on its own K1 operand set.  The last
+        result is the kernel's prior validity."""
         C = vs_t.shape[1]
-        mvalid, (props, cm, bx, top), (coefs, pack) = \
-            _prep.model_operands(vs_t, z_t, n, vpvs, self.priors,
-                                 self.p_skm)
+        mvalid, (props, cm, bx, top), rf_ops = _prep.model_operands(
+            vs_t, z_t, n, vpvs, self.priors, self.rf_specs)
+        rf_ops = iter(rf_ops)
         ys, tvalids, new_cache = [], [], []
         for spec, (_, roots, slopes) in zip(self.specs, cache):
             if spec.kind == 'swd':
@@ -256,8 +260,9 @@ class Evaluator:
                 tvalids.append(~err)
                 new_cache.append((cg, roots_n, slopes_n))
                 continue
+            coefs, pack = next(rf_ops)
             response = _resp.resp(coefs, pack, spec.cut, spec.nsamp,
-                                  spec.fsamp)
+                                  spec.fsamp, spec.wave_type)
             y, tvalid = self._rf_time_series(spec, response, pack,
                                              cold=False)
             ys.append(y)

@@ -4,28 +4,37 @@
 
 Builds the port's CUDA kernels from ``bayhunter_tpu_torch/csrc`` with
 nvcc (one process per source, started together): K1 model operands, K2
-warm root walker (Rayleigh and Love), K3 RF response, K4/K5 Rayleigh
-and Love secular values, K6 RF operands.  Checks each against its plain
-PyTorch twin on the card at the main paths' shapes (10,240 chains, 21
-layer slots; K4/K5 on one 64-candidate counting block of 21 periods,
-K3 at the warm 99 and the cold 257 frequencies), timing both with CUDA
-events beside the kernel's bound (the larger of its bytes over
-3.35 TB/s and its operations over 67 TFLOP/s, the H100's float32
-peak, counted from this run's inputs).  Checks the tutorial truth model
-against the committed golden data (``tests/fixtures/st3_*.dat``): the
-cold Rayleigh and Love solves (K4, K5), the cold receiver function (K6,
-K3 at 257 frequencies), the warm walker for both wave types (K2) and
-the warm receiver function (K3).
+warm root walker (Rayleigh and Love), K3 RF response (uniform Q, P and
+SV), K3r RF response (per-layer Q, P and SV), K4/K5 Rayleigh and Love
+secular values, K6 RF operands.  Checks each against its plain PyTorch
+twin on the card at the main paths' shapes (10,240 chains, 21 layer
+slots; K1 with one and with two RF targets; K4/K5 on one 64-candidate
+counting block of 21 periods; K3 at the warm 99 and the cold 257
+frequencies; K3r at 99 frequencies on path A's models and Q), timing
+both with CUDA events beside the kernel's bound (the larger of its
+bytes over 3.35 TB/s and its operations over 67 TFLOP/s, the H100's
+float32 peak, counted from this run's inputs).  Checks the tutorial
+truth model against the committed golden data
+(``tests/fixtures/st3_*.dat``): the cold Rayleigh and Love solves (K4,
+K5), the cold P and S receiver functions (K6, K3 at 257 frequencies),
+the warm walker for both wave types (K2), the warm P and S receiver
+functions (K3), and ``rf.synrf`` with uniform Q given as arrays (K6,
+K3r) for both waves.
 
-Then it drives two main paths through the port's entry points, each
-with every launch count set to 0 just before it and read just after:
+Then it drives four paths through the port's entry points, each with
+every launch count set to 0 just before it and read just after:
 
   * ``tutorial`` — ``bench.py``'s tutorial joint inversion (Rayleigh
     phase + P-RF): cold init of 10,240 chains (K4, K6, K3), early
     cycles up to the early cutoff, timed late cycles (K1, K2, K3);
   * ``tutorial_rl_prf`` — the same with Love phase as a third target:
     cold init (K4, K5, K6, K3), early cycles, timed late cycles (K1,
-    K2 for both wave types, K3).
+    K2 for both wave types, K3);
+  * path A, ``synrf_batch`` — the public batched RF forward of 10,240
+    grown models under a seeded per-layer Q model, P and SV (K6, K3r);
+  * ``tutorial_prf_srf`` — Rayleigh phase + P-RF + S-RF: cold init (K4,
+    K6 and K3 for both waves), early cycles, timed late cycles (K1 with
+    two RF operand sets, K2, K3 twice per model step).
 
 Last it profiles the late steps of ``tutorial``: host-clock time per
 move, and under ``torch.profiler`` the device's busy and idle share and
@@ -51,6 +60,7 @@ C_MAIN = 10240
 NL = 21
 ITERS = 2000          # bench.py's iter_burnin = iter_main
 LATE_CYCLES = 64      # timed late cycles of each main path
+PATH_A_CALLS = 5      # synrf_batch calls of path A per wave type
 KERNEL_REPS = 20
 STEP_REPS = 20        # host-clock steps per move in the profile phase
 PROFILE_CYCLES = 4    # late cycles under torch.profiler
@@ -75,8 +85,12 @@ OPS = dict(
     walk_eval=12,         # walker bookkeeping around one evaluation
     resp_layer=450,       # resp.cu: two phase terms, the 2x2 algebra
     resp_fixed=500,       # resp.cu: Q factors, surface layer, closure
+    resp_q_phase=18,      # resp.cu phase_q over phase: the complex
+    #                       velocity (6), its square (6), its inverse (6)
+    resp_q_slot=3,        # resp.cu: the Q-contrast test of one slot
     rf_interface=420,     # cplx.cuh interface_coeffs + skip-depth test
-    rf_slot=25,           # flattening (two logs) and t0 of one slot
+    rf_flatten_slot=15,   # prep.cu flatten: two logs, a quotient
+    rf_t0_slot=10,        # prep.cu rf_rows: t0 term of one slot
     rf_fixed=150,         # displacement and free-surface matrices
     model_slot=35,        # voronoi, validity and SWD rows of one slot
     model_fixed=150,      # gtsolh's five Newton steps
@@ -215,12 +229,50 @@ def check_walker(torch, counter, name, iwave, wargs, slopes):
                  plain_ms / 3, moved / 3, ops / 3)
 
 
+def q_model(N, nl, seed=5):
+    """Path A's seeded attenuation model of the :func:`grown_models` with
+    nucleus counts ``N``, (C, nl) float32: Qs per model layer in 50-600
+    increasing with depth, the halfspace's Q in the padded slots (as
+    its velocities), Qp = 2.25 Qs."""
+    rs = np.random.RandomState(seed)
+    qs = np.zeros((len(N), nl), np.float32)
+    for i, n in enumerate(N):
+        qs[i, :n] = np.sort(rs.uniform(50.0, 600.0, n))
+        qs[i, n:] = qs[i, n - 1]
+    return np.float32(2.25) * qs, qs
+
+
+def grown_layers(torch, dev):
+    """(C, NL) layer arrays h, vp, vs, rho of :func:`grown_models` and
+    their (C, NL) Qp, Qs of :func:`q_model`: path A's inputs."""
+    from bayhunter_tpu_torch.ops import voronoi
+    VS, Z, N = grown_models(C_MAIN, NL)
+    layers = voronoi.voronoi_to_layers(
+        torch.tensor(VS, device=dev), torch.tensor(Z, device=dev),
+        torch.tensor(N, device=dev),
+        torch.full((C_MAIN,), 1.73, dtype=torch.float32, device=dev))
+    qp, qs = (torch.tensor(q, device=dev) for q in q_model(N, NL))
+    return layers, qp, qs
+
+
+def check_bitwise(torch, tag, kernel_out, plain_out):
+    """Max |kernel - twin| over matching tensors; fails unless equal."""
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(kernel_out,
+                                                         plain_out))
+    log('%s: max |kernel - twin| = %.3g (bitwise required)' % (tag, err))
+    if not all(bool(torch.isfinite(a).all()) and torch.equal(a, b)
+               for a, b in zip(kernel_out, plain_out)):
+        raise AssertionError('%s differs from its twin' % tag)
+    return err
+
+
 def check_kernels(torch, dev):
     """Each kernel against its twin on the card at main-path shapes."""
     from bayhunter_tpu_torch import bench_config
-    from bayhunter_tpu_torch.ops import prep, resp, rf, swd, walk
+    from bayhunter_tpu_torch.ops import prep, resp, rf, swd
 
-    sampler, ev = bench_config.build(dev, iters=ITERS, nl=NL)
+    _, ev = bench_config.build_prf_srf(dev, iters=ITERS, nl=NL)
     VS, Z, N = grown_models(C_MAIN, NL)
     vs_t = torch.tensor(VS.T.copy(), device=dev)
     z_t = torch.tensor(Z.T.copy(), device=dev)
@@ -228,28 +280,30 @@ def check_kernels(torch, dev):
     vpvs = torch.full((C_MAIN,), 1.73, dtype=torch.float32, device=dev)
     out = []
 
-    # K1
-    args = (vs_t, z_t, n, vpvs, ev.priors, ev.p_skm)
-    kv, ksw, krf = prep.model_operands(*args)
-    pv, psw, prf = prep.model_operands_plain(*args)
-    torch.cuda.synchronize()
-    if not torch.equal(kv, pv):
-        raise AssertionError('K1 validity differs from its twin on %d '
-                             'chains' % int((kv != pv).sum()))
-    err1 = max(float((a - b).abs().max()) for a, b in
-               zip(ksw + krf, psw + prf))
-    log('K1 model operands: valid %d/%d, max |kernel - twin| = %.3g '
-        '(tolerance 3e-6)' % (int(kv.sum()), C_MAIN, err1))
-    if not err1 <= 3e-6:
-        raise AssertionError('K1 operands differ from the twin')
-    out.append(entry(
-        'K1', 'K1 model operands', 'prep.cu', 'pallas_prep.py:315', err1,
-        timed(lambda: prep.model_operands(*args), KERNEL_REPS),
-        timed(lambda: prep.model_operands_plain(*args), 3),
-        nbytes(vs_t, z_t, n, vpvs, kv, *ksw, *krf),
-        C_MAIN * (OPS['model_fixed'] + OPS['rf_fixed']
-                  + NL * (OPS['model_slot'] + OPS['rf_slot'])
-                  + (NL - 1) * OPS['rf_interface'])))
+    # K1, with the P-RF spec of the main path and with the P- and S-RF
+    # specs of tutorial_prf_srf
+    for specs, counter, tag in (
+            (ev.rf_specs[:1], 'K1', 'K1 model operands'),
+            (ev.rf_specs, 'K1_2rf', 'K1 model operands (P- and S-RF)')):
+        args = (vs_t, z_t, n, vpvs, ev.priors, specs)
+        kv, ksw, krf = prep.model_operands(*args)
+        pv, psw, prf = prep.model_operands_plain(*args)
+        if not torch.equal(kv, pv):
+            raise AssertionError('K1 validity differs from its twin on %d '
+                                 'chains' % int((kv != pv).sum()))
+        log('K1: valid %d/%d' % (int(kv.sum()), C_MAIN))
+        err1 = check_bitwise(torch, tag, ksw + sum(krf, ()),
+                             psw + sum(prf, ()))
+        out.append(entry(
+            counter, tag, 'prep.cu', 'pallas_prep.py:315', err1,
+            timed(lambda: prep.model_operands(*args), KERNEL_REPS),
+            timed(lambda: prep.model_operands_plain(*args), 3),
+            nbytes(vs_t, z_t, n, vpvs, kv, *ksw, *sum(krf, ())),
+            C_MAIN * (OPS['model_fixed'] + NL * (OPS['model_slot']
+                                                 + OPS['rf_flatten_slot'])
+                      + len(specs) * (OPS['rf_fixed']
+                                      + NL * OPS['rf_t0_slot']
+                                      + (NL - 1) * OPS['rf_interface']))))
 
     # K4 / K5 on the first counting block of the cold search (64
     # candidates above cm at each of the 21 periods)
@@ -274,13 +328,9 @@ def check_kernels(torch, dev):
             return twin(wvno, omega, *lay)
 
         k, p = kernel(), plain()
-        torch.cuda.synchronize()
-        err = float((k - p).abs().max())
-        log('%s: %d x %d x %d candidates, max |kernel - twin| = %.3g '
-            '(bitwise required), |values| up to %.3g'
-            % (tag, C_MAIN, R, swd.KBLOCK, err, float(p.abs().max())))
-        if not (bool(torch.isfinite(k).all()) and torch.equal(k, p)):
-            raise AssertionError('%s differ from the twin' % tag)
+        err = check_bitwise(torch, '%s, %d x %d x %d candidates, |values| '
+                            'up to %.3g' % (tag, C_MAIN, R, swd.KBLOCK,
+                                            float(p.abs().max())), (k,), (p,))
         out.append(entry(
             counter, tag, 'secular.cu', 'pallas_secular.py:%d'
             % (267 if iwave == 2 else 332), err,
@@ -308,51 +358,72 @@ def check_kernels(torch, dev):
                                 (props, spec.omegas, c_prev, cm, bx, top),
                                 slopes))
 
-    # K3 at the warm path's Gauss-cut lanes, on K1's operands, and K6 ->
-    # K3 at all nsamp/2 + 1 lanes, as the cold evaluation runs them
-    rspec = ev.specs[1]
+    # K6 for both waves; K3 at the warm path's Gauss-cut lanes on K1's P
+    # and S operand sets, and on K6's at all nsamp/2 + 1 lanes, as the
+    # cold evaluation runs them
+    pspec, sspec = ev.specs[1], ev.specs[2]
     planes = tuple(props[k * NL:(k + 1) * NL] for k in range(4))
-    kc6, kp6 = prep.rf_operands(*planes, ev.p_skm)
-    pc6, pp6 = prep.rf_operands_plain(*planes, ev.p_skm)
-    torch.cuda.synchronize()
-    err6 = max(float((kc6 - pc6).abs().max()),
-               float((kp6 - pp6).abs().max()))
-    log('K6 RF operands: max |kernel - twin| = %.3g (bitwise required)'
-        % err6)
-    if not (torch.equal(kc6, pc6) and torch.equal(kp6, pp6)):
-        raise AssertionError('K6 differs from its twin')
+    k6 = {}
+    for wave in (rf.P_WAVE, rf.SV_WAVE):
+        k6[wave] = prep.rf_operands(*planes, pspec.p_skm, wave)
+        err6 = check_bitwise(torch, 'K6 RF operands (%s)' % 'PS'[wave],
+                             k6[wave], prep.rf_operands_plain(
+                                 *planes, pspec.p_skm, wave))
     out.append(entry(
         'K6', 'K6 RF operands', 'prep.cu', 'pallas_prep.py:141', err6,
-        timed(lambda: prep.rf_operands(*planes, ev.p_skm), KERNEL_REPS),
-        timed(lambda: prep.rf_operands_plain(*planes, ev.p_skm), 3),
-        nbytes(*planes, kc6, kp6),
-        C_MAIN * (OPS['rf_fixed'] + NL * OPS['rf_slot']
+        timed(lambda: prep.rf_operands(*planes, pspec.p_skm), KERNEL_REPS),
+        timed(lambda: prep.rf_operands_plain(*planes, pspec.p_skm), 3),
+        nbytes(*planes, *k6[rf.P_WAVE]),
+        C_MAIN * (OPS['rf_fixed'] + NL * (OPS['rf_flatten_slot']
+                                          + OPS['rf_t0_slot'])
                   + (NL - 1) * OPS['rf_interface'])))
     depth_row = rf.pack_offsets(NL)['depth']
-    for (coefs, pack), cut, counter, tag in (
-            (krf, rspec.cut, 'K3_warm', 'K3 RF response (%d lanes, warm)'),
-            ((kc6, kp6), rspec.nsamp // 2 + 1, 'K3_cold',
-             'K3 RF response (%d lanes, cold)')):
+    for (coefs, pack), cut, wave, counter, tag in (
+            (krf[0], pspec.cut, rf.P_WAVE, 'K3_warm',
+             'K3 RF response (%d lanes, warm)'),
+            (k6[rf.P_WAVE], pspec.nsamp // 2 + 1, rf.P_WAVE, 'K3_cold',
+             'K3 RF response (%d lanes, cold)'),
+            (krf[1], sspec.cut, rf.SV_WAVE, 'K3_sv',
+             'K3 RF response (%d lanes, warm, SV)')):
         tag = tag % cut
-        rargs = (coefs, pack, cut, rspec.nsamp, rspec.fsamp)
-        ko = resp.resp(*rargs)
-        po = resp.resp_plain(*rargs)
-        torch.cuda.synchronize()
-        scale = float(torch.maximum(po[0].abs().max(), po[1].abs().max()))
-        err3 = max(float((a - b).abs().max()) for a, b in zip(ko, po))
-        bitwise = all(torch.equal(a, b) for a, b in zip(ko, po))
-        log('%s: max |kernel - twin| = %.3g, limit 1e-5 x max|cz| = %.3g, '
-            'bitwise %s' % (tag, err3, 1e-5 * scale, bitwise))
-        if not err3 <= 1e-5 * scale:
-            raise AssertionError('K3 differs from its twin')
+        rargs = (coefs, pack, cut, pspec.nsamp, pspec.fsamp, wave)
+        err3 = check_bitwise(torch, tag, resp.resp(*rargs),
+                             resp.resp_plain(*rargs))
         depth = pack[depth_row].clamp(max=NL - 2).double()
         out.append(entry(
             counter, tag, 'resp.cu', 'pallas_rf.py:288', err3,
             timed(lambda: resp.resp(*rargs), KERNEL_REPS),
             timed(lambda: resp.resp_plain(*rargs), 3),
-            nbytes(pack, *ko) + 4 * 32 * C_MAIN * float((depth + 1).mean()),
+            nbytes(pack, *resp.resp(*rargs))
+            + 4 * 32 * C_MAIN * float((depth + 1).mean()),
             cut * float((OPS['resp_fixed']
                          + depth * OPS['resp_layer']).sum())))
+
+    # K3r on path A's inputs: K6's operands of the grown models, the
+    # seeded per-layer Q planes, the Gauss-cut lanes
+    (h, vp, vs, rho), qp, qs = grown_layers(torch, dev)
+    qp, qs = qp.T.contiguous(), qs.T.contiguous()
+    cut = rf.gauss_cut(512, 5.0, 1.0)
+    for wave, counter in ((rf.P_WAVE, 'K3r_p'), (rf.SV_WAVE, 'K3r_sv')):
+        tag = 'K3r RF response, per-layer Q (%d lanes, %s)' % (
+            cut, 'PS'[wave])
+        coefs, pack = prep.rf_operands(
+            *(x.T.contiguous() for x in (h, vp, vs, rho)),
+            6.4 * rf.DEG_PER_KM, wave)
+        rargs = (coefs, pack, qp, qs, cut, 512, 5.0, wave)
+        err = check_bitwise(torch, tag, resp.resp_q(*rargs),
+                            resp.resp_q_plain(*rargs))
+        depth = rf.q_depth(pack[depth_row], qp, qs).double()
+        out.append(entry(
+            counter, tag, 'resp.cu', 'pallas_rf.py:288', err,
+            timed(lambda: resp.resp_q(*rargs), KERNEL_REPS),
+            timed(lambda: resp.resp_q_plain(*rargs), 3),
+            nbytes(pack, qp, qs, *resp.resp_q(*rargs))
+            + 4 * 32 * C_MAIN * float((depth + 1).mean()),
+            cut * float((OPS['resp_fixed'] + NL * OPS['resp_q_slot']
+                         + 2 * OPS['resp_q_phase'] + depth
+                         * (OPS['resp_layer'] + 2 * OPS['resp_q_phase'])
+                         ).sum())))
     return out
 
 
@@ -370,16 +441,16 @@ def tutorial_layers(torch, dev):
 
 def check_golden(torch, dev):
     """The tutorial truth model against the committed golden data:
-    cold phase velocities of both wave types (K4, K5), the cold receiver
-    function (K6, K3 over all frequencies), then warm phase velocities
-    (K2, each move setting from a warm start off the DDC grid) and the
-    warm receiver function (K1's RF rows are K6's; K3 over the Gauss-cut
-    lanes)."""
+    cold phase velocities of both wave types (K4, K5), the cold P and S
+    receiver functions (K6, K3 over all frequencies), then warm phase
+    velocities (K2, each move setting from a warm start off the DDC
+    grid), the warm receiver functions (K1's RF rows are K6's; K3 over
+    the Gauss-cut lanes), and ``rf.synrf`` with uniform Q given as
+    arrays (K6, K3r)."""
     from bayhunter_tpu_torch import bench_config
     from bayhunter_tpu_torch.ops import prep, resp, rf, swd, walk
 
     fx = bench_config.FIXTURES
-    obs_rf = np.loadtxt(os.path.join(fx, 'st3_prf.dat'))[:201, 1]
     h, vp, vs, rho = tutorial_layers(torch, dev)
     props = torch.cat([h, vp, vs, rho]).contiguous()
     cm, bx = swd.lower_bound(vp, vs, dim=0)
@@ -411,31 +482,49 @@ def check_golden(torch, dev):
         errs['warm ' + name] = worst
 
     nsamp, fsamp, tshift = 512, 5.0, 5.0
-    coefs, pack = prep.rf_operands(h, vp, vs, rho, 6.4 * rf.DEG_PER_KM)
-    full = resp.resp(coefs, pack, nsamp // 2 + 1, nsamp, fsamp)
-    y = rf.receiver_function(full, pack, NL, nsamp, fsamp, tshift, 1.0)
-    errs['cold prf'] = float(np.abs(y[0, :201].cpu().numpy()
-                                    - obs_rf).max())
     cut = rf.gauss_cut(nsamp, fsamp, 1.0)
-    response = resp.resp(coefs, pack, cut, nsamp, fsamp)
-    y = rf.receiver_function(response, pack, NL, nsamp, fsamp, tshift, 1.0,
-                             dft=rf.dft_tables(cut, nsamp, fsamp, tshift,
-                                               1.0, dev))
-    errs['warm prf'] = float(np.abs(y[0, :201].cpu().numpy()
-                                    - obs_rf).max())
+    dft = rf.dft_tables(cut, nsamp, fsamp, tshift, 1.0, dev)
+    q_errs = {}
+    for name, wave in (('prf', rf.P_WAVE), ('srf', rf.SV_WAVE)):
+        obs = np.loadtxt(os.path.join(fx, 'st3_%s.dat' % name))[:201, 1]
+        coefs, pack = prep.rf_operands(h, vp, vs, rho, 6.4 * rf.DEG_PER_KM,
+                                       wave)
+        for key, lanes, tables in (('cold', nsamp // 2 + 1, None),
+                                   ('warm', cut, dft)):
+            response = resp.resp(coefs, pack, lanes, nsamp, fsamp, wave)
+            y = rf.receiver_function(response, pack, NL, nsamp, fsamp,
+                                     tshift, 1.0, tables, wave)
+            errs['%s %s' % (key, name)] = float(np.abs(
+                y[0, :201].cpu().numpy() - obs).max())
+        # K3r: uniform Q as per-layer arrays
+        vs0 = float(vs[0, 0])
+        vpvs0 = float(vp[0, 0]) / vs0
+        y = rf.synrf(h[:, 0], vp[:, 0], vs[:, 0], rho[:, 0],
+                     torch.full((NL,), 500.0, device=dev),
+                     torch.full((NL,), 225.0, device=dev), 6.4, 1.0, nsamp,
+                     fsamp, tshift, vs0,
+                     (2.0 - vpvs0 ** 2) / (2.0 - 2.0 * vpvs0 ** 2),
+                     wave_type=wave)
+        q_errs['synrf array-Q ' + name] = float(np.abs(
+            y[:201].cpu().numpy() - obs).max())
     log('golden: tutorial model max |err| ' + json.dumps(errs)
-        + ' (limit 1e-4 each)')
-    if not all(e <= 1e-4 for e in errs.values()):
+        + ' (limit 1e-4 each); ' + json.dumps(q_errs) + ' (limit 5e-4 '
+        'each, the f32 bound of tests/test_rf.py:50-54)')
+    if not (all(e <= 1e-4 for e in errs.values())
+            and all(e <= 5e-4 for e in q_errs.values())):
         raise AssertionError('the kernels miss the tutorial golden data')
 
 
 def launch_counts():
-    """The launch counts of every kernel wrapper: K2's split by wave."""
+    """The launch counts of every kernel wrapper: K2's split by wave,
+    K3's and K3r's SV launches beside all their launches."""
     from bayhunter_tpu_torch.ops import prep, resp, swd, walk
     w = walk.warm_roots_walk
     return dict(K1=prep.model_operands.launches,
                 K2_rayleigh=w.launches - w.love_launches,
                 K2_love=w.love_launches, K3=resp.resp.launches,
+                K3_sv=resp.resp.sv_launches, K3r=resp.resp_q.launches,
+                K3r_sv=resp.resp_q.sv_launches,
                 K4=swd.secular4.launches, K5=swd.secular1.launches,
                 K6=prep.rf_operands.launches)
 
@@ -443,21 +532,25 @@ def launch_counts():
 def reset_counts():
     from bayhunter_tpu_torch.ops import prep, resp, swd, walk
     for w in (prep.model_operands, walk.warm_roots_walk, resp.resp,
-              swd.secular4, swd.secular1, prep.rf_operands):
+              resp.resp_q, swd.secular4, swd.secular1, prep.rf_operands):
         w.launches = 0
     walk.warm_roots_walk.love_launches = 0
+    resp.resp.sv_launches = 0
+    resp.resp_q.sv_launches = 0
 
 
 def main_path(torch, dev, name, build, kernels):
     """One configuration through the port's entry points, with the
     launch counts set to 0 before and read after; fails unless each of
-    ``kernels`` launched.  Returns (launches at init, launches in all,
-    sampler, states, generator)."""
+    ``kernels`` launched and K3 launched once per RF target for each K1
+    launch of the steps.  Returns (launches at init, launches in all,
+    the number of RF targets, sampler, states, generator)."""
     from bayhunter_tpu_torch.sampler.chain import dispatch_cycles
 
     reset_counts()
     torch.cuda.reset_peak_memory_stats(dev)
-    sampler, _ = build(dev, iters=ITERS, nl=NL)
+    sampler, ev = build(dev, iters=ITERS, nl=NL)
+    n_rf = len(ev.rf_specs)
     t0 = time.perf_counter()
     states, gen = sampler.init_states_host(0, C_MAIN)
     torch.cuda.synchronize()
@@ -503,6 +596,10 @@ def main_path(torch, dev, name, build, kernels):
     if missing:
         raise AssertionError('%s: kernels %s never launched' % (name,
                                                                 missing))
+    if launches['K3'] - at_init['K3'] != n_rf * launches['K1']:
+        raise AssertionError('%s: K3 launched %d times in the steps, not '
+                             '%d per K1 launch' % (
+                                 name, launches['K3'] - at_init['K3'], n_rf))
     if not bool(torch.isfinite(states.logL).all()):
         raise AssertionError('non-finite logL')
     if not acc[2] > 0:
@@ -511,7 +608,54 @@ def main_path(torch, dev, name, build, kernels):
         if not bool(torch.isfinite(y).all()):
             raise AssertionError('non-finite cached synthetics, target %d'
                                  % t)
-    return at_init, launches, sampler, states, gen
+    return at_init, launches, n_rf, sampler, states, gen
+
+
+def path_a(torch, dev):
+    """Path A: ``rf.synrf_batch`` on 10,240 grown models under the seeded
+    per-layer Q model, for P and SV incidence, ``PATH_A_CALLS`` calls
+    each, the launch counts set to 0 before and read after.  Checks the
+    RFs' shape and finiteness, and 64 chains against the entry point's
+    plain twins on the CPU.  Returns the launch counts."""
+    from bayhunter_tpu_torch.ops import rf
+
+    (h, vp, vs, rho), qp, qs = grown_layers(torch, dev)
+    vpvs0 = vp[:, 0] / vs[:, 0]
+    poisson = (2.0 - vpvs0 * vpvs0) / (2.0 - 2.0 * vpvs0 * vpvs0)
+    args = (h, vp, vs, rho, qp, qs, 6.4, 1.0, 512, 5.0, 5.0, vs[:, 0],
+            poisson)
+    reset_counts()
+    stats = {}
+    for wave in (rf.P_WAVE, rf.SV_WAVE):
+        seconds = []
+        for _ in range(PATH_A_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = rf.synrf_batch(*args, wave_type=wave)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        if not (y.shape == (C_MAIN, 512) and bool(torch.isfinite(y).all())):
+            raise AssertionError('path A: RFs of shape %s, finite %s'
+                                 % (tuple(y.shape),
+                                    bool(torch.isfinite(y).all())))
+        ref = rf.synrf_batch(*(x[:64].cpu() for x in args[:6]), *args[6:11],
+                             *(x[:64].cpu() for x in args[11:]),
+                             wave_type=wave, device='cpu')
+        err = float((y[:64].cpu() - ref).abs().max())
+        steady = float(np.median(seconds[1:]))
+        stats['PS'[wave]] = dict(
+            seconds_per_call=seconds, models_per_s=C_MAIN / steady,
+            max_abs_rf=float(y.abs().max()), max_err_vs_cpu_twins=err)
+        if not err <= 1e-5:
+            raise AssertionError('path A (%s): RFs differ from the CPU '
+                                 'twins by %.3g' % ('PS'[wave], err))
+    launches = launch_counts()
+    log('path A, synrf_batch of %d models, per-layer Q: %s, launches %s'
+        % (C_MAIN, json.dumps(stats), json.dumps(launches)))
+    if not (launches['K6'] == launches['K3r'] == 2 * PATH_A_CALLS
+            and launches['K3r_sv'] == PATH_A_CALLS and launches['K3'] == 0):
+        raise AssertionError('path A did not run K6 and K3r once per call')
+    return launches
 
 
 def merged_length(intervals):
@@ -606,28 +750,38 @@ def main():
     kernels = check_kernels(torch, dev)
     check_golden(torch, dev)
     by_path = {}
-    init_a, all_a, sampler, states, gen = main_path(
+    init_a, all_a, n_rf, sampler, states, gen = main_path(
         torch, dev, 'tutorial', bench_config.build,
         ('K1', 'K2_rayleigh', 'K3', 'K4', 'K6'))
-    by_path['tutorial'] = (init_a, all_a)
+    by_path['tutorial'] = (init_a, all_a, n_rf)
     profile_steps(torch, sampler, states, gen)
     del sampler, states, gen
-    init_b, all_b, _, _, _ = main_path(
+    init_b, all_b, n_rf, _, _, _ = main_path(
         torch, dev, 'tutorial_rl_prf', bench_config.build_rl_prf,
         ('K1', 'K2_rayleigh', 'K2_love', 'K3', 'K4', 'K5', 'K6'))
-    by_path['tutorial_rl_prf'] = (init_b, all_b)
-    # K3 runs at all frequencies only in the cold init, at the
+    by_path['tutorial_rl_prf'] = (init_b, all_b, n_rf)
+    zero = dict.fromkeys(all_b, 0)
+    by_path['synrf_batch'] = (zero, path_a(torch, dev), 0)
+    init_c, all_c, n_rf, _, _, _ = main_path(
+        torch, dev, 'tutorial_prf_srf', bench_config.build_prf_srf,
+        ('K1', 'K2_rayleigh', 'K3', 'K3_sv', 'K4', 'K6'))
+    by_path['tutorial_prf_srf'] = (init_c, all_c, n_rf)
+    # each record's launches on the paths: K1 by its number of RF
+    # operand sets; K3 at all frequencies only in the cold inits, at the
     # Gauss-cut ones only in the cycles
+    rules = dict(
+        K1=lambda i, t, n: t['K1'] if n == 1 else 0,
+        K1_2rf=lambda i, t, n: t['K1'] if n == 2 else 0,
+        K3_warm=lambda i, t, n: (t['K3'] - t['K3_sv'])
+        - (i['K3'] - i['K3_sv']),
+        K3_cold=lambda i, t, n: i['K3'] - i['K3_sv'],
+        K3_sv=lambda i, t, n: t['K3_sv'] - i['K3_sv'],
+        K3r_p=lambda i, t, n: t['K3r'] - t['K3r_sv'],
+        K3r_sv=lambda i, t, n: t['K3r_sv'])
     for k in kernels:
         counter = k.pop('counter')
-        per = {}
-        for path, (at_init, total) in by_path.items():
-            if counter == 'K3_cold':
-                per[path] = at_init['K3']
-            elif counter == 'K3_warm':
-                per[path] = total['K3'] - at_init['K3']
-            else:
-                per[path] = total[counter]
+        rule = rules.get(counter, lambda i, t, n: t[counter])
+        per = {path: rule(*counts) for path, counts in by_path.items()}
         k['launches'] = sum(per.values())
         k['launches_by_path'] = per
     print(json.dumps({'kernels': kernels}))

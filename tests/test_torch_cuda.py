@@ -1,6 +1,8 @@
 """CUDA kernels vs their plain twins on the card: K1-K3 at a small
 batch, K4/K5 (secular values), K6 (RF operands), K3 over all 257
-frequencies and K2's Love branch bit for bit.
+frequencies, K2's Love branch, K3 for SV incidence, K3r (per-layer Q,
+P and SV) and K1 with a P and an S receiver-function target bit for
+bit.
 
 Needs an NVIDIA GPU and nvcc (marker ``cuda``); skipped elsewhere.  On
 a machine with a card:
@@ -17,6 +19,7 @@ from bayhunter_tpu_torch.ops import prep, resp, rf, swd, walk
 NL = 21
 PRIORS = prep.ModelPriors(1, 20, 2.0, 5.0, 0.0, 60.0, 0.1, None, None)
 P_SKM = 6.4 * rf.DEG_PER_KM
+RF_P = ((P_SKM, rf.P_WAVE),)      # K1's RF spec of the main path
 
 pytestmark = pytest.mark.cuda
 
@@ -43,7 +46,7 @@ def _models(dev, C=300, seed=7):
 
 
 def test_model_operands_kernel_matches_twin(dev):
-    args = _models(dev) + (PRIORS, P_SKM)
+    args = _models(dev) + (PRIORS, RF_P)
     before = prep.model_operands.launches
     kv, ksw, krf = prep.model_operands(*args)
     pv, psw, prf = prep.model_operands_plain(*args)
@@ -58,7 +61,7 @@ def test_model_operands_kernel_matches_twin(dev):
 def test_walker_kernel_matches_twin(dev, setting):
     st = {'vs': swd.WARM_VS, 'z': swd.WARM_Z, 'dim': swd.WARM_DIM}[setting]
     _, (props, cm, bx, top), _ = prep.model_operands(*_models(dev),
-                                                     PRIORS, P_SKM)
+                                                     PRIORS, RF_P)
     periods = np.linspace(1, 41, 21).astype(np.float32)
     h, vp, vs, rho = (props[k * NL:(k + 1) * NL].T.contiguous()
                       for k in range(4))
@@ -80,7 +83,8 @@ def test_walker_kernel_matches_twin(dev, setting):
 
 
 def test_response_kernel_matches_twin(dev):
-    _, _, (coefs, pack) = prep.model_operands(*_models(dev), PRIORS, P_SKM)
+    _, _, ((coefs, pack),) = prep.model_operands(*_models(dev), PRIORS,
+                                                 RF_P)
     cut = rf.gauss_cut(512, 5.0, 1.0)
     ko = resp.resp(coefs, pack, cut, 512, 5.0)
     po = resp.resp_plain(coefs, pack, cut, 512, 5.0)
@@ -93,7 +97,7 @@ def _layers(dev, C):
     """(C, NL) layer arrays h, vp, vs, rho of :func:`_models` from K1's
     walker planes."""
     _, (props, _, _, _), _ = prep.model_operands(*_models(dev, C=C),
-                                                 PRIORS, P_SKM)
+                                                 PRIORS, RF_P)
     return tuple(props[k * NL:(k + 1) * NL].T.contiguous() for k in range(4))
 
 
@@ -144,7 +148,7 @@ def test_response_kernel_all_frequencies_matches_twin(dev):
 def test_love_walker_kernel_matches_twin_bitwise(dev, setting):
     st = {'vs': swd.WARM_VS, 'z': swd.WARM_Z, 'dim': swd.WARM_DIM}[setting]
     _, (props, cm, bx, top), _ = prep.model_operands(*_models(dev),
-                                                     PRIORS, P_SKM)
+                                                     PRIORS, RF_P)
     periods = np.linspace(1, 41, 21).astype(np.float32)
     h, vp, vs, rho = (props[k * NL:(k + 1) * NL].T.contiguous()
                       for k in range(4))
@@ -167,3 +171,56 @@ def test_love_walker_kernel_matches_twin_bitwise(dev, setting):
     assert torch.equal(kf, pf)
     assert torch.equal(kc, pc)
     assert torch.equal(ks, ps)
+
+
+def _q_planes(dev, C, seed=5):
+    """(NL, C) Qp, Qs planes: Qs in 50-600 increasing with depth, Qp =
+    2.25 Qs."""
+    rs = np.random.RandomState(seed)
+    qs = np.sort(rs.uniform(50.0, 600.0, (C, NL)), axis=1).T.copy()
+    return (torch.tensor(2.25 * qs, dtype=torch.float32, device=dev),
+            torch.tensor(qs, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.parametrize('wave', [rf.P_WAVE, rf.SV_WAVE], ids=['P', 'SV'])
+def test_array_q_response_kernel_matches_twin_bitwise(dev, wave):
+    layers = tuple(x.T.contiguous() for x in _layers(dev, 2048))
+    coefs, pack = prep.rf_operands(*layers, P_SKM, wave)
+    qp, qs = _q_planes(dev, 2048)
+    cut = rf.gauss_cut(512, 5.0, 1.0)
+    before = resp.resp_q.launches, resp.resp_q.sv_launches
+    ko = resp.resp_q(coefs, pack, qp, qs, cut, 512, 5.0, wave)
+    assert (resp.resp_q.launches, resp.resp_q.sv_launches) == (
+        before[0] + 1, before[1] + wave)
+    po = resp.resp_q_plain(coefs, pack, qp, qs, cut, 512, 5.0, wave)
+    assert ko[0].shape == (2048, cut)
+    for a, b in zip(ko, po):
+        assert bool(torch.isfinite(a).all())
+        assert torch.equal(a, b)
+
+
+def test_sv_response_kernel_matches_twin_bitwise(dev):
+    layers = tuple(x.T.contiguous() for x in _layers(dev, 2048))
+    kc, kp = prep.rf_operands(*layers, P_SKM, rf.SV_WAVE)
+    pc, pp = prep.rf_operands_plain(*layers, P_SKM, rf.SV_WAVE)
+    assert torch.equal(kc, pc) and torch.equal(kp, pp)
+    for cut in (rf.gauss_cut(512, 5.0, 1.0), 257):
+        before = resp.resp.sv_launches
+        ko = resp.resp(kc, kp, cut, 512, 5.0, rf.SV_WAVE)
+        assert resp.resp.sv_launches == before + 1
+        po = resp.resp_plain(kc, kp, cut, 512, 5.0, rf.SV_WAVE)
+        for a, b in zip(ko, po):
+            assert torch.equal(a, b)
+
+
+def test_model_operands_two_rf_targets_bitwise(dev):
+    specs = ((P_SKM, rf.P_WAVE), (5.5 * rf.DEG_PER_KM, rf.SV_WAVE))
+    args = _models(dev, C=2048) + (PRIORS, specs)
+    kv, ksw, krf = prep.model_operands(*args)
+    pv, psw, prf = prep.model_operands_plain(*args)
+    assert torch.equal(kv, pv)
+    assert len(krf) == len(prf) == 2
+    for a, b in zip(ksw + krf[0] + krf[1], psw + prf[0] + prf[1]):
+        assert torch.equal(a, b)
+    t0 = rf.pack_offsets(NL)['t0']
+    assert not torch.equal(krf[0][1][t0], krf[1][1][t0])

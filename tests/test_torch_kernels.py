@@ -67,8 +67,9 @@ def _priors():
 def test_model_operands_twin_matches_jax():
     vs_t, z_t, n, vpvs = _ensemble()
     jv, jsw, jrf = _jax_operands(vs_t, z_t, n, vpvs)
-    tv, tsw, trf = prep.model_operands(_t(vs_t), _t(z_t), _t(n), _t(vpvs),
-                                       _priors(), P_SKM)
+    tv, tsw, (trf,) = prep.model_operands(_t(vs_t), _t(z_t), _t(n),
+                                          _t(vpvs), _priors(),
+                                          ((P_SKM, rf.P_WAVE),))
     assert np.array_equal(tv.numpy(), jv)
     for a, b in zip(tsw, jsw):
         np.testing.assert_allclose(a.numpy(), b, rtol=0, atol=3e-6)

@@ -21,7 +21,7 @@ def test_init_states_match_jax_rl_prf():
                     'test_init_states_match_jax_rl_prf'):
         return
     from test_torch_sampler import compare_init
-    ps = compare_init(love=True, nl=NL)
+    ps = compare_init('tutorial_rl_prf', nl=NL)
     assert len(ps.cache) == 3 and ps.misfits.shape[1] == 4
 
 
@@ -30,4 +30,4 @@ def test_early_cycle_matches_jax_rl_prf():
                     'test_early_cycle_matches_jax_rl_prf'):
         return
     from test_torch_sampler import compare_cycle
-    compare_cycle(late=False, love=True, nl=NL)
+    compare_cycle(late=False, config='tutorial_rl_prf', nl=NL)

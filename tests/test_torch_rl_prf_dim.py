@@ -33,7 +33,7 @@ def test_dim_rejects_from_init_match_jax_rl_prf():
     from bayhunter_tpu_torch import convert
     from test_torch_sampler import jax_draws, samplers
 
-    sj, _, sp = samplers(love=True, nl=NL)
+    sj, _, sp = samplers('tutorial_rl_prf', nl=NL)
     st = sj.init_states_host(0, C)
     ps = convert.state_from_numpy(st, 'cpu')
     keys = st.key

@@ -3,14 +3,17 @@
 the grown posterior-like ensemble of tests/test_dim_reject_pin.py, with
 counters and iteration numbers set so that every chain meets a
 proposal-width adaptation point within the cycle.  The mixed cycle is
-in test_torch_cycle.py; the same comparisons on ``tutorial_rl_prf``
-(Rayleigh + Love + P-RF) are in test_torch_rl_prf*.py.
+in test_torch_cycle.py.
 
 The port takes its randoms as explicit per-chain ``draws``; here they
 are computed from the JAX chains' PRNG keys exactly as the JAX moves
 draw them (chain.py:654-823; a key advances by its first split
 whether or not the move is accepted), so both samplers see the same
 proposals.
+
+The same comparisons on ``tutorial_rl_prf`` are in test_torch_rl_prf*.py
+and on ``tutorial_prf_srf`` (Rayleigh + P-RF + S-RF) in
+test_torch_prf_srf*.py.
 """
 
 import os
@@ -88,46 +91,53 @@ def with_adaptation_points(st, nsteps):
         propdist=jnp.asarray(pd, st.propdist.dtype))
 
 
-def samplers(love=False, nl=21):
-    """(JAX sampler, JAX evaluator, port sampler) of the bench
-    configuration, or of ``tutorial_rl_prf`` when ``love``; the JAX one
-    on the batch path with the Pallas kernels in interpret mode."""
+def samplers(config='tutorial', nl=21):
+    """(JAX sampler, JAX evaluator, port sampler) of the configuration
+    ``config`` of ``bench_config.CONFIGS``; the JAX one on the batch
+    path with the Pallas kernels in interpret mode."""
     from test_dim_reject_pin import _bench_config_sampler
-    if not love:
+    if config == 'tutorial':
         sj, ej = _bench_config_sampler(nl)
         return sj, ej, bench_config.build('cpu', iters=ITERS, nl=nl)[0]
     from bayhunter_tpu import Targets
     from bayhunter_tpu.sampler.chain import build_sampler, make_config
     from bayhunter_tpu.sampler.evaluator import build_evaluator
-    fx = bench_config.FIXTURES
-    data = [np.loadtxt(os.path.join(fx, 'st3_%s.dat' % name))
-            for name in ('rdispph', 'ldispph', 'prf')]
-    joint = Targets.JointTarget(targets=[
-        Targets.RayleighDispersionPhase(data[0][:, 0], data[0][:, 1]),
-        Targets.LoveDispersionPhase(data[1][:, 0], data[1][:, 1]),
-        Targets.PReceiverFunction(data[2][:, 0], data[2][:, 1])])
+    refs = bench_config.CONFIGS[config]
+    targets = []
+    for ref in refs:
+        obs = np.loadtxt(os.path.join(bench_config.FIXTURES,
+                                      'st3_%s.dat' % ref))
+        cls = getattr(Targets, bench_config.TARGETS[ref].__name__)
+        targets.append(cls(obs[:, 0], obs[:, 1]))
+    joint = Targets.JointTarget(targets=targets)
     ip = bench_config.initparams(ITERS)
-    cfg = make_config(bench_config.PRIORS, ip, ['swd', 'swd', 'rf'], nl=nl)
+    cfg = make_config(bench_config.PRIORS, ip,
+                      [t.noiseref for t in targets], nl=nl)
     ej = build_evaluator(joint, bench_config.PRIORS, ip, nl,
                          use_batch_swd=True, interpret=True)
     return (build_sampler(ej, cfg), ej,
-            bench_config.build_rl_prf('cpu', iters=ITERS, nl=nl)[0])
+            bench_config.build_config(config, 'cpu', iters=ITERS, nl=nl)[0])
+
+
+def wide_noise(noise, sp, seed=4):
+    """``noise`` with its sigmas drawn from the upper part of their
+    priors (SWD 0.02-0.04 km/s, RF 0.01-0.018)."""
+    rs = np.random.RandomState(seed)
+    noise = np.array(noise)
+    for t, spec in enumerate(sp.ev.specs):
+        lo, hi = (0.02, 0.04) if spec.kind == 'swd' else (0.01, 0.018)
+        noise[:, 2 * t + 1] = rs.uniform(lo, hi, noise.shape[0])
+    return noise
 
 
 def with_wide_noise(st, ej, sp, seed=4):
-    """``st`` with its noise sigmas drawn from the upper part of their
-    priors (SWD 0.02-0.04 km/s, RF 0.01-0.018) and logL re-scored.  The
+    """``st`` with :func:`wide_noise` sigmas and logL re-scored.  The
     grown states fit the Love data and the RF less well than the
     Rayleigh data, and at the sigmas of the init draws (down to 0.002)
     the f32 rounding of the synthetics, common to both packages (the RF
     is 2.5e-5 from a float64 evaluation in either), moves logL by ~1,
     enough to tip accept decisions 0.1 from their threshold."""
-    rs = np.random.RandomState(seed)
-    noise = np.array(st.noise)
-    for t, spec in enumerate(sp.ev.specs):
-        lo, hi = (0.02, 0.04) if spec.kind == 'swd' else (0.01, 0.018)
-        noise[:, 2 * t + 1] = rs.uniform(lo, hi, noise.shape[0])
-    noise = jnp.asarray(noise, st.noise.dtype)
+    noise = jnp.asarray(wide_noise(st.noise, sp, seed), st.noise.dtype)
     logL = jax.vmap(lambda no, ca: ej.eval_noise(no, ca)[0])(noise,
                                                             st.cache)
     return st._replace(noise=noise, logL=jnp.asarray(logL, st.logL.dtype))
@@ -143,15 +153,16 @@ def target_terms(sp, cache, noise):
         for t, spec in enumerate(sp.ev.specs)])
 
 
-def compare_cycle(late, love=False, nl=21):
+def compare_cycle(late, config='tutorial', nl=21):
     """Run one cycle in both packages from the same grown states and
     compare them, adaptation of the proposal widths included."""
     from test_dim_reject_pin import _grown_states
 
-    sj, ej, sp = samplers(love, nl)
+    sj, ej, sp = samplers(config, nl)
     order = sp.late_order if late else sp.early_order
     st = _grown_states(sj, ej, C, nl=nl)
-    if love:
+    three = len(sp.ev.specs) == 3
+    if three:
         st = with_wide_noise(st, ej, sp)
     st = with_adaptation_points(st, len(order))
     marginal = []
@@ -191,7 +202,7 @@ def compare_cycle(late, love=False, nl=21):
     d = np.abs(terms - target_terms(sp, js.cache, js.noise))[:, ok]
     assert np.all(d <= scale), (d / scale).max()
     logL, logL_j = ps.logL.numpy()[ok], np.asarray(js.logL)[ok]
-    if love:
+    if three:
         # with three targets, terms of opposite sign can cancel to a
         # total near 0 (6.9 from -67, -2290 and +2365 in one chain), so
         # the total is held to the same scale as its terms
@@ -217,17 +228,35 @@ def compare_cycle(late, love=False, nl=21):
     return ps, js
 
 
-def compare_init(love=False, nl=21):
-    """Initial states of both packages from one seed; returns the
-    port's."""
-    sj, _, sp = samplers(love, nl)
-    js = sj.init_states_host(0, C)
-    ps, _ = sp.init_states_host(0, C)
+def compare_init(config='tutorial', nl=21, chains=C, terms=False):
+    """Initial states of ``chains`` chains in both packages from one
+    seed; returns the port's.  The total logL is held to rtol 1e-4, or
+    with ``terms`` each target's log-likelihood term to 1e-4 of the
+    terms' magnitude at :func:`wide_noise` sigmas and the RF synthetics
+    to the JAX package's own Pallas-vs-XLA bound (5e-5,
+    tests/test_pallas.py:335): the cold synthetics of both packages
+    carry f32 rounding of up to 3e-5, which the whitened Gaussian law
+    amplifies at the smallest init sigmas (0.007 and below) to 1.3e-4
+    of the terms of two RF targets."""
+    sj, _, sp = samplers(config, nl)
+    js = sj.init_states_host(0, chains)
+    ps, _ = sp.init_states_host(0, chains)
     for f in ('vs', 'z', 'n', 'vpvs', 'noise'):
         assert np.array_equal(getattr(ps, f).numpy(),
                               np.asarray(getattr(js, f))), f
-    np.testing.assert_allclose(ps.logL.numpy(), np.asarray(js.logL),
-                               rtol=1e-4)
+    if terms:
+        noise = wide_noise(js.noise, sp)
+        tj = target_terms(sp, js.cache, noise)
+        d = np.abs(target_terms(sp, ps.cache, noise) - tj)
+        assert np.all(d <= 1e-4 * np.abs(tj).sum(axis=0)), d.max()
+        for t, spec in enumerate(sp.ev.specs):
+            if spec.kind == 'rf':
+                np.testing.assert_allclose(ps.cache[t][0].numpy(),
+                                           np.asarray(js.cache[t][0]),
+                                           rtol=0, atol=5e-5)
+    else:
+        np.testing.assert_allclose(ps.logL.numpy(), np.asarray(js.logL),
+                                   rtol=1e-4)
     for t, spec in enumerate(sp.ev.specs):
         if spec.kind == 'swd':
             found = np.asarray(js.cache[t][2]) != 0.0
