@@ -11,6 +11,9 @@
 //
 // Shared by K2 (walk.cu) and K4/K5 (secular.cu).  Same operation order
 // as the plain twins (bayhunter_tpu_torch/ops/swd.py secular_plain).
+// Each layer update comes in two parts: the terms that do not depend on
+// the candidate (*_invariants, love_*) and the update from them
+// (*_at); the one-shot functions chain the two.
 #pragma once
 
 struct evec {
@@ -47,13 +50,30 @@ static __device__ __forceinline__ varq var_quantities(float pq, float r,
     return v;
 }
 
-static __device__ __forceinline__ evec dltar4_halfspace(
-        float wvno, float wvno2, float omega, float a_hs, float b_hs,
-        float rho_hs) {
-    float ra = vertical(wvno, omega / a_hs);
-    float rb = vertical(wvno, omega / b_hs);
-    float t_hs = b_hs / omega;
-    float gammk = 2.0f * t_hs * t_hs;
+// The terms of a layer (or the halfspace) that depend on the frequency
+// and the layer but not on the candidate wavenumber.  A caller that
+// evaluates many candidates at one frequency (the walker K2) computes
+// them once; each is the very expression of the one-shot path, so the
+// split changes no rounding.
+struct dunkin_inv {
+    float xka, xkb, gammk;
+};
+
+static __device__ __forceinline__ dunkin_inv dltar4_invariants(
+        float omega, float a_l, float b_l) {
+    dunkin_inv v;
+    v.xka = omega / a_l;
+    v.xkb = omega / b_l;
+    float t_l = b_l / omega;
+    v.gammk = 2.0f * t_l * t_l;
+    return v;
+}
+
+static __device__ __forceinline__ evec dltar4_halfspace_at(
+        float wvno, float wvno2, const dunkin_inv &v, float rho_hs) {
+    float ra = vertical(wvno, v.xka);
+    float rb = vertical(wvno, v.xkb);
+    float gammk = v.gammk;
     float gam = gammk * wvno2;
     float gamm1 = gam - 1.0f;
     evec e;
@@ -65,15 +85,19 @@ static __device__ __forceinline__ evec dltar4_halfspace(
     return e;
 }
 
-static __device__ __forceinline__ evec dltar4_layer(
-        const evec &e, float wvno, float wvno2, float omega, float d_l,
-        float a_l, float b_l, float rho_l) {
-    float xka = omega / a_l;
-    float xkb = omega / b_l;
+static __device__ __forceinline__ evec dltar4_halfspace(
+        float wvno, float wvno2, float omega, float a_hs, float b_hs,
+        float rho_hs) {
+    return dltar4_halfspace_at(wvno, wvno2,
+                               dltar4_invariants(omega, a_hs, b_hs), rho_hs);
+}
+
+// one Dunkin layer update from the layer's invariant terms
+static __device__ __forceinline__ evec dltar4_layer_at(
+        const evec &e, float wvno, float wvno2, float d_l, float rho_l,
+        float xka, float xkb, float gammki) {
     float rai = vertical(wvno, xka);
     float rbi = vertical(wvno, xkb);
-    float t_l = b_l / omega;
-    float gammki = 2.0f * t_l * t_l;
     float gami = gammki * wvno2;
     varq P = var_quantities(rai * d_l, rai, wvno < xka, d_l);
     varq S = var_quantities(rbi * d_l, rbi, wvno < xkb, d_l);
@@ -146,25 +170,57 @@ static __device__ __forceinline__ evec dltar4_layer(
     return out;
 }
 
+static __device__ __forceinline__ evec dltar4_layer(
+        const evec &e, float wvno, float wvno2, float omega, float d_l,
+        float a_l, float b_l, float rho_l) {
+    dunkin_inv v = dltar4_invariants(omega, a_l, b_l);
+    return dltar4_layer_at(e, wvno, wvno2, d_l, rho_l, v.xka, v.xkb,
+                           v.gammk);
+}
+
+// Rayleigh's water-surface clause: the layer-0 P term closes the
+// recursion that stopped below the water (xka0 = omega / a_0)
+static __device__ __forceinline__ float water_close(const evec &e,
+                                                   float wvno, float xka0,
+                                                   float d0, float rho0) {
+    float ra0 = vertical(wvno, xka0);
+    varq w = var_quantities(ra0 * d0, ra0, wvno < xka0, d0);
+    return w.cos_ * e.e1 - rho0 * w.w * e.e2;
+}
+
 struct evec2 {
     float e1, e2;
 };
 
-static __device__ __forceinline__ evec2 dltar1_halfspace(
-        float wvno, float omega, float b_hs, float rho_hs) {
+// Love's halfspace start from its invariant terms xkb_hs = omega / b_hs
+// and e2 = 1 / b_hs^2
+static __device__ __forceinline__ evec2 dltar1_halfspace_at(
+        float wvno, float xkb_hs, float rho_hs, float e2) {
     evec2 e;
-    e.e1 = rho_hs * vertical(wvno, omega / b_hs);
-    e.e2 = 1.0f / (b_hs * b_hs);
+    e.e1 = rho_hs * vertical(wvno, xkb_hs);
+    e.e2 = e2;
     return e;
 }
 
-static __device__ __forceinline__ evec2 dltar1_layer(
-        const evec2 &e, float wvno, float omega, float d_l, float b_l,
-        float rho_l) {
-    float b_safe = b_l <= 0.0f ? 1.0f : b_l;
-    float xkb = omega / b_safe;
+static __device__ __forceinline__ evec2 dltar1_halfspace(
+        float wvno, float omega, float b_hs, float rho_hs) {
+    return dltar1_halfspace_at(wvno, omega / b_hs, rho_hs,
+                               1.0f / (b_hs * b_hs));
+}
+
+// Love's candidate-invariant layer terms: xkb depends on the frequency,
+// b_safe and xmu on the layer alone
+static __device__ __forceinline__ float love_b_safe(float b_l) {
+    return b_l <= 0.0f ? 1.0f : b_l;
+}
+
+static __device__ __forceinline__ float love_xmu(float rho_l, float b_safe) {
+    return rho_l * b_safe * b_safe;
+}
+
+static __device__ __forceinline__ evec2 dltar1_layer_at(
+        const evec2 &e, float wvno, float d_l, float xkb, float xmu) {
     float rb = vertical(wvno, xkb);
-    float xmu = rho_l * b_safe * b_safe;
     varq S = var_quantities(rb * d_l, rb, wvno < xkb, d_l);
     float e10 = e.e1 * S.cos_ + e.e2 * xmu * S.x;
     float e20 = e.e1 * S.w / xmu + e.e2 * S.cos_;
@@ -174,6 +230,14 @@ static __device__ __forceinline__ evec2 dltar1_layer(
     out.e1 = e10 / nrm;
     out.e2 = e20 / nrm;
     return out;
+}
+
+static __device__ __forceinline__ evec2 dltar1_layer(
+        const evec2 &e, float wvno, float omega, float d_l, float b_l,
+        float rho_l) {
+    float b_safe = love_b_safe(b_l);
+    return dltar1_layer_at(e, wvno, d_l, omega / b_safe,
+                           love_xmu(rho_l, b_safe));
 }
 
 // One chain's padded layer columns (halfspace in slot nl - 1): slot l
@@ -226,11 +290,8 @@ struct ChainLayers {
             e = dltar4_layer(e, wvno, wvno2, omega, at(d, l), at(a, l),
                              at(b, l), at(rho, l));
         }
-        float a0 = at(a, 0);
-        float d0 = at(d, 0);
-        float xka0 = omega / a0;
-        float ra0 = vertical(wvno, xka0);
-        varq w = var_quantities(ra0 * d0, ra0, wvno < xka0, d0);
-        return water ? w.cos_ * e.e1 - at(rho, 0) * w.w * e.e2 : e.e1;
+        return water ? water_close(e, wvno, omega / at(a, 0), at(d, 0),
+                                   at(rho, 0))
+                     : e.e1;
     }
 };

@@ -67,17 +67,18 @@ SIGNATURES = {
                 _F, _I, _I, RfSpecs, PackLayout, _P, _P, _P, _P, _P, _P],
     # K2: props, omegas, c_prev, cm, bx, top, slope_prev | nl, C, R,
     # max_steps, nbisect, newton_iters, newton_maxshift, has_slope,
-    # iwave | c, found, slope | stream
+    # iwave | threads, tile, smem (walk.geometry) | c, found, slope |
+    # stream
     'bh_walk': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                _I, _I, _P, _P, _P, _P],
-    # K3: coefs, pack, layout | nl, C, F, nsamp, wave | dw | czr, czi,
-    # crr, cri | stream
-    'bh_resp': [_P, _P, PackLayout, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P,
-                _P],
+                _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    # K3: coefs, pack, layout | nl, C, F, nsamp, wave | dw | threads,
+    # tile, cs, smem (resp.geometry) | czr, czi, crr, cri | stream
+    'bh_resp': [_P, _P, PackLayout, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
+                _P, _P, _P, _P, _P],
     # K3r: coefs, pack, qp, qs, layout | nl, C, F, nsamp, wave | dw,
-    # wref | czr, czi, crr, cri | stream
+    # wref | threads, tile, cs, smem | czr, czi, crr, cri | stream
     'bh_resp_q': [_P, _P, _P, _P, PackLayout, _I, _I, _I, _I, _I, _F, _F,
-                  _P, _P, _P, _P, _P],
+                  _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # K4: wvno, omega, d, a, b, rho | nl, C, L | out | stream
     'bh_secular4': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     # K5: wvno, omega, d, b, rho | nl, C, L | out | stream
@@ -108,8 +109,8 @@ def sources():
                   + glob.glob(os.path.join(SRC_DIR, '*.cuh')))
 
 
-def library_path():
-    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+def library_path(flags=NVCC_FLAGS):
+    h = hashlib.sha256(' '.join(flags).encode())
     for path in sources():
         with open(path, 'rb') as f:
             h.update(os.path.basename(path).encode() + f.read())
@@ -125,8 +126,10 @@ def load():
     return _Build.lib
 
 
-def _build_and_load():
-    out = library_path()
+def _build_and_load(flags=NVCC_FLAGS):
+    """The library built with nvcc ``flags`` (the shipped ones unless a
+    measurement asks for others), loaded with its signatures."""
+    out = library_path(flags)
     t0 = time.perf_counter()
     if not os.path.exists(out):
         nvcc = nvcc_path()
@@ -138,8 +141,8 @@ def _build_and_load():
         tmp = '%s.%d' % (out, os.getpid())
         cu = [s for s in sources() if s.endswith('.cu')]
         objs = ['%s.%s.o' % (tmp, os.path.basename(s)[:-3]) for s in cu]
-        procs = [subprocess.Popen([nvcc] + NVCC_FLAGS + ['-I', SRC_DIR, '-c',
-                                                        '-o', o, s],
+        procs = [subprocess.Popen([nvcc] + flags + ['-I', SRC_DIR, '-c',
+                                                   '-o', o, s],
                                   stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for s, o in zip(cu, objs)]

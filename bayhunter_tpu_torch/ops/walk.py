@@ -31,10 +31,77 @@ spherical-earth Love target would need its own density plane (exponent
 -5 against -2.275, ``pallas_prep.py:285``).
 """
 
+import functools
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from bayhunter_tpu_torch.ops import _ext
+from bayhunter_tpu_torch.ops import lanes as _lanes
 from bayhunter_tpu_torch.ops import swd as _swd
+
+MAX_THREADS = 128   # a block's threads (csrc/walk.cu WALK_MAX_THREADS)
+
+
+class Geometry(NamedTuple):
+    """Launch geometry of the walker: ``threads`` per block, ``tile``
+    whole chains per block, ``blocks``, dynamic shared bytes ``smem``."""
+    threads: int
+    tile: int
+    blocks: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=64)
+def geometry(C, R, nl, iwave):
+    """The walker's launch geometry for C chains of R periods and nl
+    layer slots (csrc/walk.cu's shared-memory layout): a tile of
+    ``threads // R`` chains (at least one) per block, so that a block's
+    lanes are whole chains; fewer threads where the per-thread invariant
+    columns would not fit."""
+    ninv = 3 if iwave == 2 else 2
+    threads = MAX_THREADS
+    while True:
+        tile = max(1, threads // R)
+        floats = 4 * nl * tile + 2 * tile + ninv * (nl - 1) * threads
+        smem = 4 * (floats + 2 * tile)             # + top and order ints
+        if smem <= _lanes.SMEM_MAX or threads == _lanes.WARP:
+            break
+        threads //= 2
+    if smem > _lanes.SMEM_MAX:
+        raise ValueError('walker: %d layer slots need %d bytes of shared '
+                         'memory, above %d' % (nl, smem, _lanes.SMEM_MAX))
+    return Geometry(threads, tile, -(-C // tile), smem)
+
+
+def lane_map(geo, C, R, top):
+    """(blocks, rounds, threads) int64: the lane ``chain * R + period``
+    that each thread of each block serves in each round, -1 where it
+    idles — the kernel's map, the tile's chains ordered by (top, chain).
+    ``top`` (C,) clamped deepest slots."""
+    T, tile, B = geo.threads, geo.tile, geo.blocks
+    key = np.full(B * tile, np.iinfo(np.int64).max)
+    key[:C] = np.asarray(top, np.int64)
+    order = np.argsort(key.reshape(B, tile), axis=1, kind='stable')
+    rounds = -(-tile * R // T)
+    j = np.arange(rounds * T)
+    cc = order[:, np.minimum(j // R, tile - 1)]
+    lanes = (np.arange(B)[:, None] * tile + cc) * R + j % R
+    tc = np.minimum(tile, C - np.arange(B) * tile)
+    lanes[j[None, :] >= (tc * R)[:, None]] = -1
+    return lanes.reshape(B, rounds, T)
+
+
+def lane_work(C, R, nl, iwave, top, evaluations):
+    """(executed, useful) layer-evaluations of a launch under the
+    kernel's lane map (:func:`lanes.executed_work`): ``evaluations``
+    (C, R) per lane (``warm_roots_walk_plain.evaluations``), each
+    running the chain's layers top..0."""
+    top = np.minimum(np.asarray(top, np.int64), nl - 2)
+    layers = np.repeat(top + 1, R)
+    lm = lane_map(geometry(C, R, nl, iwave), C, R, top)
+    return _lanes.executed_work(lm, evaluations, layers)
 
 
 def warm_roots_walk_plain(props, omegas, c_prev, cm, bx, top, ring_k,
@@ -170,6 +237,7 @@ def warm_roots_walk(props, omegas, c_prev, cm, bx, top, ring_k, trips,
     c = torch.empty((C, R), dtype=f32, device=dev)
     found = torch.empty((C, R), dtype=torch.bool, device=dev)
     slope = torch.empty((C, R), dtype=f32, device=dev)
+    geo = geometry(C, R, nl, int(iwave))
     lib = _ext.load()
     with torch.cuda.device(dev):
         rc = lib.bh_walk(
@@ -177,9 +245,9 @@ def warm_roots_walk(props, omegas, c_prev, cm, bx, top, ring_k, trips,
             _ext.ptr(cm), _ext.ptr(bx), _ext.ptr(top),
             _ext.ptr(slope_prev), nl, C, R, 2 * ring_k * trips,
             nbisect, newton_iters, float(newton_maxshift),
-            int(slope_prev is not None), int(iwave), _ext.ptr(c),
-            _ext.ptr(found),
-            _ext.ptr(slope), _ext.stream(dev))
+            int(slope_prev is not None), int(iwave), geo.threads, geo.tile,
+            geo.smem, _ext.ptr(c), _ext.ptr(found), _ext.ptr(slope),
+            _ext.stream(dev))
     _ext.check(rc, 'walk')
     warm_roots_walk.launches += 1
     warm_roots_walk.love_launches += int(iwave == 1)

@@ -483,18 +483,40 @@ class Sampler:
         return states, gen
 
 
+def remainder_moves(sampler, it_global, count, gen):
+    """Moves of global iterations it_global .. it_global + count - 1 on
+    the JAX package's random-scan schedule (``_move_for``, used there
+    for a remainder shorter than a cycle): each iteration's move drawn
+    uniformly from ``early_order`` before the sampler's early cutoff and
+    from ``late_order`` after it, per iteration, with uniforms from
+    ``gen``.  ``late_order``'s two MOVE_DIM entries stand for JAX's
+    birth and death."""
+    u = torch.rand(count, generator=gen, device=gen.device,
+                   dtype=torch.float64).cpu().numpy()
+    moves = []
+    for k in range(count):
+        order = sampler.early_order if it_global + k < sampler.early_cutoff \
+            else sampler.late_order
+        moves.append(order[min(int(u[k] * len(order)), len(order) - 1)])
+    return moves
+
+
 def dispatch_cycles(sampler, states, it_global, count, gen):
     """Advance ``states`` exactly ``count`` iterations from global
     iteration ``it_global`` (counted like ``iiter``): whole early
     cycles before the sampler's ``early_cutoff``, mixed cycles after
-    it; a remainder shorter than a cycle runs the cycle's first moves
-    (each move is invariant on its own, so any sequence of them is a
-    valid sampler)."""
+    it; a remainder shorter than a cycle runs step by step on the
+    random-scan schedule of :func:`remainder_moves`."""
     done = 0
     while done < count:
         early = (it_global + done) < sampler.early_cutoff
         order = sampler.early_order if early else sampler.late_order
-        order = order[:count - done]
+        if count - done < len(order):
+            for move in remainder_moves(sampler, it_global + done,
+                                        count - done, gen):
+                states = sampler.step(states, move,
+                                      sampler.draw(gen, states, move))
+            break
         states = sampler.cycle(states, order, gen)
         done += len(order)
     return states

@@ -13,7 +13,11 @@ counting block of 21 periods; K3 at the warm 99 and the cold 257
 frequencies; K3r at 99 frequencies on path A's models and Q), timing
 both with CUDA events beside the kernel's bound (the larger of its
 bytes over 3.35 TB/s and its operations over 67 TFLOP/s, the H100's
-float32 peak, counted from this run's inputs).  Checks the tutorial
+float32 peak, counted from this run's inputs), and prints K2's and
+K3's launch geometry and executed-per-useful lane work.  Runs the ragged
+shapes of ``tests/test_torch_cuda.py`` (C = 1, 37, 10,237 chains; K2 at
+R = 1, 21, 60 periods, K3/K3r at F = 1, 99, 257 lanes) bit for bit
+against the twins.  Checks the tutorial
 truth model against the committed golden data
 (``tests/fixtures/st3_*.dat``): the cold Rayleigh and Love solves (K4,
 K5), the cold P and S receiver functions (K6, K3 at 257 frequencies),
@@ -185,13 +189,37 @@ def secular_ops(top, evaluations, iwave):
     return float((evaluations * per_eval).sum())
 
 
+def warm_starts(torch, layers, periods, iwave):
+    """K2's inputs of the kernel phase, (c_prev, slopes) each (C, R):
+    the cold roots and bracket slopes of the (C, NL) ``layers`` (K4 or
+    K5, 2,048 chains at a time), the roots moved off the DDC grid by a
+    seeded offset."""
+    from bayhunter_tpu_torch.ops import swd
+
+    roots, slopes = [], []
+    for i in range(0, layers[0].shape[0], 2048):
+        _, _, r_, s_ = swd.surfdisp_roots_cold(
+            *(x[i:i + 2048] for x in layers), periods, iwave)
+        roots.append(r_)
+        slopes.append(s_)
+    roots, slopes = torch.cat(roots), torch.cat(slopes)
+    gen = torch.Generator(device=roots.device)
+    gen.manual_seed(11)
+    return roots + 0.0013 + 0.04 * (torch.rand(
+        roots.shape, generator=gen, device=roots.device) - 0.5), slopes
+
+
 def check_walker(torch, counter, name, iwave, wargs, slopes):
     """K2 for one wave type against its twin, for each move class:
     (record, max error).  The bound counts the secular evaluations each
     lane makes (the twin counts them)."""
-    from bayhunter_tpu_torch.ops import swd, walk
+    from bayhunter_tpu_torch.ops import lanes, swd, walk
 
     props, omegas, c_prev, cm, bx, top = wargs
+    R = omegas.shape[0]
+    top_np = np.minimum(top.cpu().numpy().astype(np.int64), NL - 2)
+    lane_map = walk.lane_map(walk.geometry(C_MAIN, R, NL, iwave), C_MAIN, R,
+                             top_np)
     err = ms = plain_ms = moved = ops = 0.0
     for move, st in (('vs', swd.WARM_VS), ('z', swd.WARM_Z),
                      ('dim', swd.WARM_DIM)):
@@ -212,12 +240,18 @@ def check_walker(torch, counter, name, iwave, wargs, slopes):
         bitwise = bool(torch.equal(kc, pc) and torch.equal(kf, pf)
                        and torch.equal(ks, ps))
         err = max(err, dmax)
+        ev = evals.cpu().numpy()
+        done, use = walk.lane_work(C_MAIN, R, NL, iwave, top_np, ev)
+        walks, evs = lanes.executed_work(lane_map, ev, np.ones(C_MAIN * R))
         log('%s (%s moves): found %.4f, found flags differ on %.2e of '
             'lanes (limit 1e-4), root p90 %.3g (limit 2e-5), max %.3g '
-            '(limit 5e-4), bitwise %s, %.2f evaluations per lane'
+            '(limit 5e-4), bitwise %s, %.2f evaluations per lane, executed '
+            '/ useful layer-evaluations %.4f (%.4f with one layer per '
+            'evaluation: the walk lengths alone)'
             % (name, move, float(kf.float().mean()), flips, p90, dmax,
-               bitwise, float(evals.double().mean())))
-        if not (flips <= 1e-4 and p90 < 2e-5 and dmax < 5e-4):
+               bitwise, float(evals.double().mean()), done / use,
+               walks / evs))
+        if not (flips <= 1e-4 and p90 < 2e-5 and dmax < 5e-4 and bitwise):
             raise AssertionError('%s differs from its twin' % name)
         ms += timed(lambda: walk.warm_roots_walk(*wargs, **kw), KERNEL_REPS)
         plain_ms += timed(lambda: walk.warm_roots_walk_plain(*wargs, **kw),
@@ -225,6 +259,7 @@ def check_walker(torch, counter, name, iwave, wargs, slopes):
         moved += nbytes(props, omegas, c_prev, cm, bx, top, sl, kc, kf, ks)
         ops += secular_ops(top.clamp(max=NL - 2), evals.double(), iwave)
         ops += OPS['walk_eval'] * float(evals.double().sum())
+    log('%s: geometry %s' % (name, walk.geometry(C_MAIN, R, NL, iwave)))
     return entry(counter, name, 'walk.cu', 'pallas_walk.py:71', err, ms / 3,
                  plain_ms / 3, moved / 3, ops / 3)
 
@@ -338,22 +373,11 @@ def check_kernels(torch, dev):
             nbytes(wvno, omega, k, *lay),
             secular_ops(cand_top, R * swd.KBLOCK, iwave)))
 
-    # K2 for both wave types, from cold roots (K4, K5) moved off the
-    # DDC grid
-    gen = torch.Generator(device=dev)
+    # K2 for both wave types
     for iwave, counter, tag in (
             (2, 'K2_rayleigh', 'K2 warm root walker (Rayleigh)'),
             (1, 'K2_love', 'K2 warm root walker (Love)')):
-        roots, slopes = [], []
-        for i in range(0, C_MAIN, 2048):
-            _, _, r_, s_ = swd.surfdisp_roots_cold(
-                *(x[i:i + 2048] for x in layers), spec.periods, iwave)
-            roots.append(r_)
-            slopes.append(s_)
-        roots, slopes = torch.cat(roots), torch.cat(slopes)
-        gen.manual_seed(11)
-        c_prev = roots + 0.0013 + 0.04 * (torch.rand(
-            roots.shape, generator=gen, device=dev) - 0.5)
+        c_prev, slopes = warm_starts(torch, layers, spec.periods, iwave)
         out.append(check_walker(torch, counter, tag, iwave,
                                 (props, spec.omegas, c_prev, cm, bx, top),
                                 slopes))
@@ -398,6 +422,7 @@ def check_kernels(torch, dev):
             + 4 * 32 * C_MAIN * float((depth + 1).mean()),
             cut * float((OPS['resp_fixed']
                          + depth * OPS['resp_layer']).sum())))
+        log_resp_lane_work(resp, tag, cut, depth, False)
 
     # K3r on path A's inputs: K6's operands of the grown models, the
     # seeded per-layer Q planes, the Gauss-cut lanes
@@ -413,7 +438,8 @@ def check_kernels(torch, dev):
         rargs = (coefs, pack, qp, qs, cut, 512, 5.0, wave)
         err = check_bitwise(torch, tag, resp.resp_q(*rargs),
                             resp.resp_q_plain(*rargs))
-        depth = rf.q_depth(pack[depth_row], qp, qs).double()
+        depth = rf.q_depth(pack[depth_row], qp, qs).clamp(
+            max=NL - 2).double()
         out.append(entry(
             counter, tag, 'resp.cu', 'pallas_rf.py:288', err,
             timed(lambda: resp.resp_q(*rargs), KERNEL_REPS),
@@ -424,7 +450,40 @@ def check_kernels(torch, dev):
                          + 2 * OPS['resp_q_phase'] + depth
                          * (OPS['resp_layer'] + 2 * OPS['resp_q_phase'])
                          ).sum())))
+        log_resp_lane_work(resp, tag, cut, depth, True)
     return out
+
+
+def log_resp_lane_work(resp, tag, cut, depth, q):
+    """Logs K3's or K3r's geometry and executed-per-useful layer-lanes
+    under the kernel's lane map (a tile's lanes in order, warps
+    straddling two chains)."""
+    done, use = resp.lane_work(C_MAIN, cut, NL, depth.cpu().numpy(), q)
+    log('%s: geometry %s, executed / useful layer-lanes %.4f'
+        % (tag, resp.geometry(C_MAIN, cut, NL, q), done / use))
+
+
+def check_ragged(torch, dev):
+    """The redesigned K2, K3 and K3r against their twins bit for bit at
+    the ragged shapes of tests/test_torch_cuda.py: C = 1, 37, 10,237
+    chains, R = 1, 21, 60 periods (K2, both waves, the three move
+    classes), F = 1, 99, 257 lanes (K3 and K3r, P and SV)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, 'tests'))
+    import test_torch_cuda as cases
+    t0 = time.perf_counter()
+    n = 0
+    for C in (1, 37, 10237):
+        for R in (1, 21, 60):
+            for iwave in (2, 1):
+                cases.test_walker_ragged_shapes_bitwise(dev, C, R, iwave)
+                n += 1
+        for F in (1, 99, 257):
+            for q in (False, True):
+                cases.test_response_ragged_shapes_bitwise(dev, C, F, q)
+                n += 1
+    log('ragged shapes: %d K2 and K3/K3r cases bit for bit equal to their '
+        'twins in %.1f s' % (n, time.perf_counter() - t0))
 
 
 def tutorial_layers(torch, dev):
@@ -744,10 +803,12 @@ def main():
     seconds, build_log = _ext.build_info()
     log('kernels built and loaded in %.1f s' % seconds)
     for line in build_log.splitlines():
-        if 'Compiling entry' in line or 'registers' in line:
+        if 'Compiling entry' in line or 'registers' in line \
+                or 'spill' in line:
             log('ptxas: ' + line.split('ptxas info    :')[-1].strip())
 
     kernels = check_kernels(torch, dev)
+    check_ragged(torch, dev)
     check_golden(torch, dev)
     by_path = {}
     init_a, all_a, n_rf, sampler, states, gen = main_path(

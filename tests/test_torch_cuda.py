@@ -2,7 +2,14 @@
 batch, K4/K5 (secular values), K6 (RF operands), K3 over all 257
 frequencies, K2's Love branch, K3 for SV incidence, K3r (per-layer Q,
 P and SV) and K1 with a P and an S receiver-function target bit for
-bit.
+bit; and the redesigned K2, K3 and K3r bit for bit at ragged shapes
+(C = 1, 37, 10,237 chains; R = 1, 21, 60 periods; F = 1, 99, 257
+frequency lanes), on models whose deepest layer runs from a pure
+halfspace to slot NL - 2, with a water-surface chain for K2 and both
+wave types (K2 at R = 1 stages 128 chains a block, above the 48 KB of
+shared memory a launch gets without opting in); and that K2's, K3's and
+K3r's entry points refuse a launch geometry with too little shared
+memory.
 
 Needs an NVIDIA GPU and nvcc (marker ``cuda``); skipped elsewhere.  On
 a machine with a card:
@@ -224,3 +231,134 @@ def test_model_operands_two_rf_targets_bitwise(dev):
         assert torch.equal(a, b)
     t0 = rf.pack_offsets(NL)['t0']
     assert not torch.equal(krf[0][1][t0], krf[1][1][t0])
+
+
+def _ragged_planes(dev, C, water=True, seed=13):
+    """(NL, C) planes h, vp, vs, rho and (C,) float top of random models
+    whose deepest layer ``top`` runs over -1..NL-2 (the first chains
+    take -1 and NL - 2); slots below top are halfspace copies of zero
+    thickness, and with ``water`` chain C // 2 has a water layer on
+    top."""
+    rs = np.random.RandomState(seed)
+    top = rs.randint(-1, NL - 1, C)
+    top[:2] = [-1, NL - 2][:C]
+    vs = np.sort(rs.uniform(2.0, 4.8, (C, NL)), axis=1)
+    h = rs.uniform(0.5, 8.0, (C, NL))
+    for i in range(C):
+        h[i, top[i] + 1:] = 0.0
+        vs[i, top[i] + 1:] = vs[i, -1]
+    vp = 1.73 * vs
+    rho = 0.32 * vp + 0.77
+    if water and C > 2:
+        w = C // 2
+        top[w] = max(top[w], 2)
+        h[w, :top[w] + 1] = np.maximum(h[w, :top[w] + 1], 0.5)
+        vs[w, 0], vp[w, 0], rho[w, 0] = 0.0, 1.5, 1.03
+    planes = tuple(torch.tensor(x.T.copy(), dtype=torch.float32, device=dev)
+                   for x in (h, vp, vs, rho))
+    return planes, torch.tensor(top, dtype=torch.float32, device=dev)
+
+
+@pytest.mark.parametrize('iwave', [2, 1], ids=['rayleigh', 'love'])
+@pytest.mark.parametrize('R', [1, 21, 60])
+@pytest.mark.parametrize('C', [1, 37, 10237])
+def test_walker_ragged_shapes_bitwise(dev, C, R, iwave):
+    planes, top = _ragged_planes(dev, C)
+    props = torch.cat(planes).contiguous()
+    cm, bx = swd.lower_bound(planes[1], planes[2], dim=0)
+    periods = np.linspace(1.0, 60.0, R).astype(np.float32)
+    _, _, roots, slopes = swd.surfdisp_roots_cold(
+        *(x.T.contiguous() for x in planes), periods, iwave)
+    mid = 0.5 * (cm + bx)[:, None].expand_as(roots)
+    c_prev = torch.where(slopes != 0.0, roots + 0.0013, mid).contiguous()
+    args = (props, swd.angular_frequencies(periods, dev), c_prev, cm, bx,
+            top)
+    for st in (swd.WARM_VS, swd.WARM_Z, swd.WARM_DIM):
+        kw = dict(ring_k=st['ring'], trips=swd.WARM_CAP,
+                  nbisect=st['nbisect'], newton_iters=st['newton_iters'],
+                  newton_maxshift=swd.NEWTON_MAXSHIFT, iwave=iwave,
+                  slope_prev=slopes if st['cached_slope'] else None)
+        before = walk.warm_roots_walk.launches
+        kc, kf, ks = walk.warm_roots_walk(*args, **kw)
+        assert walk.warm_roots_walk.launches == before + 1
+        pc, pf, ps = walk.warm_roots_walk_plain(*args, **kw)
+        assert torch.equal(kf, pf)
+        assert torch.equal(kc, pc)
+        assert torch.equal(ks, ps)
+
+
+def _ragged_q(dev, C, seed=17):
+    """(NL, C) Qp, Qs planes: uniform Q for every third chain, Q
+    contrasts only above a random slot for the next, at every slot for
+    the rest."""
+    rs = np.random.RandomState(seed)
+    qs = np.sort(rs.uniform(50.0, 600.0, (C, NL)), axis=1)
+    for i in range(0, C, 3):
+        qs[i] = qs[i, 0]
+    for i in range(1, C, 3):
+        k = rs.randint(0, NL)
+        qs[i, k:] = qs[i, k]
+    qs = qs.T.copy()
+    return (torch.tensor(2.25 * qs, dtype=torch.float32, device=dev),
+            torch.tensor(qs, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.parametrize('q', [False, True], ids=['K3', 'K3r'])
+@pytest.mark.parametrize('F', [1, 99, 257])
+@pytest.mark.parametrize('C', [1, 37, 10237])
+def test_response_ragged_shapes_bitwise(dev, C, F, q):
+    planes, _ = _ragged_planes(dev, C, water=False)
+    qp, qs = _ragged_q(dev, C)
+    for wave in (rf.P_WAVE, rf.SV_WAVE):
+        coefs, pack = prep.rf_operands(*planes, P_SKM, wave)
+        depth = pack[rf.pack_offsets(NL)['depth']]
+        if C > 1:
+            assert float(depth.min()) == 0.0
+            assert float(depth.max()) == NL - 2
+        if q:
+            ko = resp.resp_q(coefs, pack, qp, qs, F, 512, 5.0, wave)
+            po = resp.resp_q_plain(coefs, pack, qp, qs, F, 512, 5.0, wave)
+        else:
+            ko = resp.resp(coefs, pack, F, 512, 5.0, wave)
+            po = resp.resp_plain(coefs, pack, F, 512, 5.0, wave)
+        for a, b in zip(ko, po):
+            assert a.shape == (C, F)
+            assert bool(torch.isfinite(a).all())
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('kernel', ['K2', 'K3', 'K3r'])
+def test_undersized_shared_memory_is_refused(dev, monkeypatch, kernel):
+    # a geometry one float short of the kernel's shared-memory layout
+    # (K2's is the wrapper's size; K3/K3r's chain records plus the
+    # staged-row count, which the wrapper rounds up to 16 bytes): the
+    # entry point refuses it (cudaErrorInvalidConfiguration, 9) before
+    # launching
+    C = 37
+    planes, top = _ragged_planes(dev, C)
+    mod = walk if kernel == 'K2' else resp
+    real = mod.geometry
+
+    def short(*a):
+        geo = real(*a)
+        return geo._replace(smem=geo.smem - 4 if kernel == 'K2'
+                            else 4 * geo.tile * geo.cs)
+
+    monkeypatch.setattr(mod, 'geometry', short)
+    if kernel == 'K2':
+        cm, bx = swd.lower_bound(planes[1], planes[2], dim=0)
+        omegas = swd.angular_frequencies(np.linspace(1.0, 60.0, 21), dev)
+        c_prev = (0.5 * (cm + bx))[:, None].expand(C, 21).contiguous()
+        fn = counter = walk.warm_roots_walk
+        args = (torch.cat(planes).contiguous(), omegas, c_prev, cm, bx, top,
+                1, 1, 0, 0, swd.NEWTON_MAXSHIFT)
+    else:
+        coefs, pack = prep.rf_operands(*planes, P_SKM)
+        fn = counter = resp.resp if kernel == 'K3' else resp.resp_q
+        args = ((coefs, pack, 99, 512, 5.0) if kernel == 'K3' else
+                (coefs, pack) + _ragged_q(dev, C) + (99, 512, 5.0))
+    before = counter.launches
+    with pytest.raises(RuntimeError, match='CUDA error 9 '):
+        fn(*args)
+    assert counter.launches == before
+

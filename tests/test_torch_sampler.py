@@ -282,3 +282,90 @@ def test_early_cycle_matches_jax():
                     'test_early_cycle_matches_jax'):
         return
     compare_cycle(late=False)
+
+
+# ----------------------------------------------------------------------
+# the remainder of dispatch_cycles: the JAX package's random-scan
+# schedule (bayhunter_tpu/sampler/chain.py _move_for :1137-1144, used by
+# its dispatch_cycles for a remainder shorter than a cycle :1520-1526):
+# each iteration's move uniform over the move list of its own phase,
+# early_moves = (vs, z, noise), late_moves = (vs, z, birth, death, noise)
+# (:296-300); the port's MOVE_DIM draws birth or death per chain, so it
+# carries weight 2/5 late.
+JAX_EARLY = {tchain.MOVE_VS: 1 / 3, tchain.MOVE_Z: 1 / 3,
+             tchain.MOVE_NOISE: 1 / 3}
+JAX_LATE = {tchain.MOVE_VS: 0.2, tchain.MOVE_Z: 0.2, tchain.MOVE_DIM: 0.4,
+            tchain.MOVE_NOISE: 0.2}
+# chi-square quantiles at p = 0.001 for 2 and 3 degrees of freedom
+CHI2_999 = {2: 13.816, 3: 16.266}
+
+
+def _chi2(moves, weights):
+    moves = np.asarray(moves)
+    assert set(moves) <= set(weights)
+    n = len(moves)
+    return sum((np.sum(moves == m) - n * p) ** 2 / (n * p)
+               for m, p in weights.items())
+
+
+class _Recorder:
+    """A sampler's move lists and early cutoff, recording the moves its
+    cycles and steps run."""
+
+    def __init__(self, sp):
+        self.early_order, self.late_order = sp.early_order, sp.late_order
+        self.early_cutoff = sp.early_cutoff
+        self.ran = []
+
+    def draw(self, gen, states, move):
+        return None
+
+    def step(self, states, move, draws):
+        self.ran.append(move)
+        return states
+
+    def cycle(self, states, order, gen):
+        for move in order:
+            states = self.step(states, move, None)
+        return states
+
+
+def test_remainder_moves_follow_the_random_scan_weights():
+    sp = bench_config.build('cpu', iters=ITERS)[0]
+    assert sp.early_order == [tchain.MOVE_VS, tchain.MOVE_Z,
+                              tchain.MOVE_NOISE]
+    assert sp.late_order == [tchain.MOVE_VS, tchain.MOVE_Z, tchain.MOVE_DIM,
+                             tchain.MOVE_DIM, tchain.MOVE_NOISE]
+    gen = torch.Generator().manual_seed(5)
+    early = sum((tchain.remainder_moves(sp, -ITERS, 2, gen)
+                 for _ in range(6000)), [])
+    late = sum((tchain.remainder_moves(sp, 0, 4, gen)
+                for _ in range(5000)), [])
+    assert _chi2(early, JAX_EARLY) < CHI2_999[2]
+    assert _chi2(late, JAX_LATE) < CHI2_999[3]
+
+
+def test_remainder_switches_lists_at_the_early_cutoff():
+    sp = bench_config.build('cpu', iters=ITERS)[0]
+    first_late = int(np.ceil(sp.early_cutoff))
+    it0 = first_late - 2
+    gen = torch.Generator().manual_seed(9)
+    draws = np.array([tchain.remainder_moves(sp, it0, 4, gen)
+                      for _ in range(4000)])
+    assert _chi2(draws[:, :2].ravel(), JAX_EARLY) < CHI2_999[2]
+    assert _chi2(draws[:, 2:].ravel(), JAX_LATE) < CHI2_999[3]
+    # dispatch_cycles: one whole early cycle, then a remainder shorter
+    # than the early cycle that straddles the cutoff, on the schedule of
+    # the same uniforms
+    last = []
+    for seed in range(20):
+        rec = _Recorder(sp)
+        start = first_late - 1 - len(sp.early_order)
+        tchain.dispatch_cycles(rec, None, start, len(sp.early_order) + 2,
+                               torch.Generator().manual_seed(seed))
+        want = tchain.remainder_moves(sp, first_late - 1, 2,
+                                      torch.Generator().manual_seed(seed))
+        assert rec.ran == sp.early_order + want
+        assert rec.ran[-2] in sp.early_order
+        last.append(rec.ran[-1])
+    assert tchain.MOVE_DIM in last

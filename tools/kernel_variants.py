@@ -1,0 +1,181 @@
+"""Time K2, K3 and K3r case by case on one card, and what bit-for-bit
+parity with their twins costs them.
+
+    python3 tools/kernel_variants.py [--fmad] [--tree DIR] [--rounds N]
+                                     [--out DIR]
+
+The cases are ``chip_smoke.py``'s inputs: 10,240 grown models, K2 from
+their cold roots (both waves; the vs, z and dim settings one case
+each), K3 at 99 lanes on K1's P and S operands and at 257 on K6's, K3r
+on path A's models and Q.  Each case is held against its plain twin
+(bitwise equality, max |error| where both are finite, K2's found-flag
+flips) and timed with CUDA events over chip_smoke.py's ``KERNEL_REPS``
+launches, ``--rounds`` times.  Prints one JSON line per build: its
+ptxas lines (registers, spills) and each case's median and times.
+
+``--tree DIR`` times the port of another tree of the repository (such
+as the parent commit, unpacked with ``git archive``) instead of this
+one's; ``tools/chip_pair.py`` runs it for each tree in its turns.
+
+``--fmad`` also builds this tree's kernels with ``--fmad=true`` in place
+of ``--fmad=false`` (a library of its own beside the shipped one, never
+loaded by the port) and times the two builds in turns within each
+round: what the twins' rounding costs.  It writes both builds' records
+to ``DIR/kernel_variants.json`` (``--out``, default ``results/``).
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)
+
+import chip_smoke as cs  # noqa: E402
+
+
+def ptxas_lines(library):
+    """{kernel entry: 'N registers, ...'} of K2, K3 and K3r, from the
+    nvcc output saved beside ``library`` when it was built."""
+    with open(library + '.log') as f:
+        log = f.read()
+    out, entry = {}, None
+    for line in log.splitlines():
+        if 'Compiling entry' in line:
+            entry = line.split("'")[1]
+        elif 'registers' in line and entry is not None:
+            if 'walk_kernel' in entry or 'resp_kernel' in entry:
+                out[entry] = line.split('ptxas info    :')[-1].strip()
+            entry = None
+        elif 'spill' in line and entry is not None:
+            out[entry + ' spills'] = line.strip()
+    return out
+
+
+def inputs(torch, dev):
+    """name -> (function of the wrappers, its twin) at chip_smoke.py's
+    shapes."""
+    from bayhunter_tpu_torch import bench_config
+    from bayhunter_tpu_torch.ops import prep, resp, rf, swd, walk
+
+    _, ev = bench_config.build_prf_srf(dev, iters=cs.ITERS, nl=cs.NL)
+    VS, Z, N = cs.grown_models(cs.C_MAIN, cs.NL)
+    args = (torch.tensor(VS.T.copy(), device=dev),
+            torch.tensor(Z.T.copy(), device=dev), torch.tensor(N, device=dev),
+            torch.full((cs.C_MAIN,), 1.73, dtype=torch.float32, device=dev),
+            ev.priors, ev.rf_specs)
+    _, (props, cm, bx, top), krf = prep.model_operands_plain(*args)
+    NL = cs.NL
+    layers = tuple(props[k * NL:(k + 1) * NL].T.contiguous()
+                   for k in range(4))
+    spec, pspec = ev.specs[0], ev.specs[1]
+    cases = {}
+    for iwave, tag in ((2, 'K2_rayleigh'), (1, 'K2_love')):
+        c_prev, slopes = cs.warm_starts(torch, layers, spec.periods, iwave)
+        wargs = (props, spec.omegas, c_prev, cm, bx, top)
+        for move, st in (('vs', swd.WARM_VS), ('z', swd.WARM_Z),
+                         ('dim', swd.WARM_DIM)):
+            kw = dict(ring_k=st['ring'], trips=swd.WARM_CAP,
+                      nbisect=st['nbisect'], newton_iters=st['newton_iters'],
+                      newton_maxshift=swd.NEWTON_MAXSHIFT, iwave=iwave,
+                      slope_prev=slopes if st['cached_slope'] else None)
+            cases['%s_%s' % (tag, move)] = (
+                lambda a=wargs, k=kw: walk.warm_roots_walk(*a, **k),
+                lambda a=wargs, k=kw: walk.warm_roots_walk_plain(*a, **k))
+    planes = tuple(props[k * NL:(k + 1) * NL] for k in range(4))
+    k6 = prep.rf_operands_plain(*planes, pspec.p_skm, rf.P_WAVE)
+    for (coefs, pack), cut, wave, tag in (
+            (krf[0], pspec.cut, rf.P_WAVE, 'K3_p_99'),
+            (krf[1], pspec.cut, rf.SV_WAVE, 'K3_sv_99'),
+            (k6, pspec.nsamp // 2 + 1, rf.P_WAVE, 'K3_p_257')):
+        a = (coefs, pack, cut, pspec.nsamp, pspec.fsamp, wave)
+        cases[tag] = (lambda a=a: resp.resp(*a),
+                      lambda a=a: resp.resp_plain(*a))
+    (h, vp, vs, rho), qp, qs = cs.grown_layers(torch, dev)
+    qp, qs = qp.T.contiguous(), qs.T.contiguous()
+    cut = rf.gauss_cut(512, 5.0, 1.0)
+    for wave, tag in ((rf.P_WAVE, 'K3r_p_99'), (rf.SV_WAVE, 'K3r_sv_99')):
+        coefs, pack = prep.rf_operands_plain(
+            *(x.T.contiguous() for x in (h, vp, vs, rho)),
+            6.4 * rf.DEG_PER_KM, wave)
+        a = (coefs, pack, qp, qs, cut, 512, 5.0, wave)
+        cases[tag] = (lambda a=a: resp.resp_q(*a),
+                      lambda a=a: resp.resp_q_plain(*a))
+    return cases
+
+
+def compare(torch, got, want):
+    """(bitwise, max |error| of each float output where both are
+    finite, found-flag flips) of a kernel's outputs."""
+    errs, flips = [], 0
+    for a, b in zip(got, want):
+        if a.dtype == torch.bool:
+            flips += int((a != b).sum())
+            continue
+        both = torch.isfinite(a) & torch.isfinite(b)
+        errs.append(float((a - b)[both].abs().max()) if bool(both.any())
+                    else 0.0)
+    return all(torch.equal(a, b) for a, b in zip(got, want)), errs, flips
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument('--fmad', action='store_true')
+    ap.add_argument('--tree', help='time the port of this tree instead')
+    ap.add_argument('--rounds', type=int, default=5)
+    ap.add_argument('--out', default='results')
+    opts = ap.parse_args()
+    if opts.tree:
+        if opts.fmad:
+            raise SystemExit('--fmad builds this tree only')
+        sys.path.insert(0, os.path.abspath(opts.tree))
+
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit('kernel_variants.py needs a CUDA device')
+    from bayhunter_tpu_torch.ops import _ext
+    dev = torch.device('cuda', 0)
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True).stdout.strip()
+    print(smi, flush=True)
+    libs = {'shipped': (_ext.load(), ptxas_lines(_ext.library_path()))}
+    if opts.fmad:
+        flags = [f for f in _ext.NVCC_FLAGS if f != '--fmad=false'] \
+            + ['--fmad=true']
+        libs['fmad'] = (_ext._build_and_load(flags),
+                        ptxas_lines(_ext.library_path(flags)))
+    cases = inputs(torch, dev)
+    twins = {k: twin() for k, (_, twin) in cases.items()}
+    times = {name: {k: [] for k in cases} for name in libs}
+    for r in range(opts.rounds):
+        for name in (list(libs) if r % 2 == 0 else list(libs)[::-1]):
+            _ext._Build.lib = libs[name][0]
+            for k, (fn, _) in cases.items():
+                times[name][k].append(cs.timed(fn, cs.KERNEL_REPS))
+    record = {'card': smi, 'builds': {}}
+    for name, (lib, ptx) in libs.items():
+        _ext._Build.lib = lib
+        checks = {k: compare(torch, fn(), twins[k])
+                  for k, (fn, _) in cases.items()}
+        rec = {'build': name, 'ptxas': ptx, 'kernels': {
+            k: dict(ms_median=float(np.median(times[name][k])),
+                    ms=times[name][k], bitwise=checks[k][0],
+                    max_abs_err=checks[k][1], found_flips=checks[k][2])
+            for k in cases}}
+        record['builds'][name] = rec
+        print(json.dumps(rec), flush=True)
+    _ext._Build.lib = libs['shipped'][0]
+    if opts.fmad:
+        os.makedirs(opts.out, exist_ok=True)
+        with open(os.path.join(opts.out, 'kernel_variants.json'),
+                  'w') as f:
+            json.dump(record, f, indent=1)
+
+
+if __name__ == '__main__':
+    main()
