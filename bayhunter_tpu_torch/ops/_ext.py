@@ -54,17 +54,26 @@ RF_MAX = 4      # RF targets K1 serves (csrc/prep.cu RF_MAX)
 
 class RfSpecs(ctypes.Structure):
     """``struct RfSpecs`` of ``csrc/prep.cu``: K1's RF targets, each a
-    slowness, a wave type and its (coefs, pack) output planes."""
+    slowness, a wave type and the rows of K1's output buffer at which
+    its (coefs, pack) planes start."""
     _fields_ = [('n', _I), ('p', _F * RF_MAX), ('wave', _I * RF_MAX),
-                ('coefs', _P * RF_MAX), ('pack', _P * RF_MAX)]
+                ('coefs', _I * RF_MAX), ('pack', _I * RF_MAX)]
+
+
+class PriorCfg(ctypes.Structure):
+    """``struct PriorCfg`` of ``csrc/prep.cu``: the prior bounds K1
+    checks."""
+    _fields_ = [('layermin', _I), ('layermax', _I)] + [
+        (name, _F) for name in ('vsmin', 'vsmax', 'zmin', 'zmax', 'thickmin',
+                                'lvz_factor', 'hvz_factor')] + [
+        ('use_lvz', _I), ('use_hvz', _I)]
 
 
 SIGNATURES = {
-    # K1: vs_t, z_t, n, vpvs | nl, C | layermin, layermax | vsmin,
-    # vsmax, zmin, zmax, thickmin, lvz_factor, hvz_factor | use_lvz,
-    # use_hvz | rf specs, layout | valid, props, cm, bx, top | stream
-    'bh_prep': [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
-                _F, _I, _I, RfSpecs, PackLayout, _P, _P, _P, _P, _P, _P],
+    # K1: vs_t, z_t, n, vpvs | nl, C | priors, rf specs, layout |
+    # threads, tile, smem (prep.geometry) | valid, out | stream
+    'bh_prep': [_P, _P, _P, _P, _I, _I, PriorCfg, RfSpecs, PackLayout, _I,
+                _I, _I, _P, _P, _P],
     # K2: props, omegas, c_prev, cm, bx, top, slope_prev | nl, C, R,
     # max_steps, nbisect, newton_iters, newton_maxshift, has_slope,
     # iwave | threads, tile, smem (walk.geometry) | c, found, slope |
@@ -83,10 +92,10 @@ SIGNATURES = {
     'bh_secular4': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     # K5: wvno, omega, d, b, rho | nl, C, L | out | stream
     'bh_secular1': [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
-    # K6: h, vp, vs, rho | nl, C | p, wave, layout | coefs, pack |
-    # stream
-    'bh_rf_prep': [_P, _P, _P, _P, _I, _I, _F, _I, PackLayout, _P, _P,
-                   _P],
+    # K6: h, vp, vs, rho | nl, C | p, wave, layout | threads, tile,
+    # smem (prep.geometry) | out | stream
+    'bh_rf_prep': [_P, _P, _P, _P, _I, _I, _F, _I, PackLayout, _I, _I, _I,
+                   _P, _P],
 }
 
 _lock = threading.Lock()
@@ -194,12 +203,14 @@ def pack_layout(offsets):
 
 
 def ptr(t):
-    return ctypes.c_void_p(t.data_ptr()) if t is not None \
-        else ctypes.c_void_p(0)
+    """A tensor's device address for a ``c_void_p`` argument (None for
+    an absent tensor): ctypes converts a plain int or None itself, which
+    costs less host time than a ``c_void_p`` object per pointer."""
+    return t.data_ptr() if t is not None else None
 
 
 def stream(device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def require(t, name, device, dtype, shape):

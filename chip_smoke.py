@@ -8,13 +8,19 @@ warm root walker (Rayleigh and Love), K3 RF response (uniform Q, P and
 SV), K3r RF response (per-layer Q, P and SV), K4/K5 Rayleigh and Love
 secular values, K6 RF operands.  Checks each against its plain PyTorch
 twin on the card at the main paths' shapes (10,240 chains, 21 layer
-slots; K1 with one and with two RF targets; K4/K5 on one 64-candidate
-counting block of 21 periods; K3 at the warm 99 and the cold 257
-frequencies; K3r at 99 frequencies on path A's models and Q), timing
-both with CUDA events beside the kernel's bound (the larger of its
-bytes over 3.35 TB/s and its operations over 67 TFLOP/s, the H100's
-float32 peak, counted from this run's inputs), and prints K2's and
-K3's launch geometry and executed-per-useful lane work.  Runs the ragged
+slots; K1 with one and with two RF targets, also on 2,048 chains; K4/K5
+on one 64-candidate counting block of 21 periods, on 10,240 grown
+models and on one cold-init chunk of 2,048 initial single-layer models
+as ``init_states_host`` draws them; K6 for P and SV on 10,240 models
+and on that chunk; K3 at the warm 99 and the cold 257 frequencies; K3r
+at 99 frequencies on path A's models and Q), timing both with CUDA
+events (K1, K6, and K4/K5 on the cold chunk: the kernel's device time
+by torch.profiler, after the main paths, and the wrapper's back-to-back
+calls by CUDA events beside it) beside the kernel's bound (the larger
+of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s, the
+H100's float32 peak, counted from this run's inputs), and prints K1's,
+K2's, K3's and K6's launch geometry and K2's and K3's
+executed-per-useful lane work.  Runs the ragged
 shapes of ``tests/test_torch_cuda.py`` (C = 1, 37, 10,237 chains; K2 at
 R = 1, 21, 60 periods, K3/K3r at F = 1, 99, 257 lanes) bit for bit
 against the twins.  Checks the tutorial
@@ -42,9 +48,11 @@ every launch count set to 0 just before it and read just after:
 
 Last it profiles the late steps of ``tutorial``: host-clock time per
 move, and under ``torch.profiler`` the device's busy and idle share and
-each kernel's device time.  It prints one line per phase (the host CPU
-among them, since the host-side work sets the rate), the card's name
-and power limit, the kernels' JSON line, and last
+each kernel's device time, and logs each cold init's K4, K5 and K6
+launches times their time on the cold chunk.  It prints one line per
+phase (the host CPU among them, since the host-side work sets the
+rate), the card's name and power limit, the kernels' JSON line, and
+last
 ``{"ok": true, "device": ...}``.
 
 Any mismatch or exception ends the run with a non-zero exit; without a
@@ -68,11 +76,14 @@ PATH_A_CALLS = 5      # synrf_batch calls of path A per wave type
 KERNEL_REPS = 20
 STEP_REPS = 20        # host-clock steps per move in the profile phase
 PROFILE_CYCLES = 4    # late cycles under torch.profiler
+COLD_CHUNK = 2048      # chains per cold-init chunk (evaluator.COLD_CHUNK)
 # device kernel names, as the profiler lists them
-KERNEL_NAMES = (('K1', '::prep_kernel('), ('K2', 'walk_kernel'),
-                ('K3', 'resp_kernel'), ('K4', 'secular_kernel<2>'),
-                ('K5', 'secular_kernel<1>'), ('K6', 'rf_prep_kernel'))
+KERNEL_NAMES = {'K1': '::prep_kernel(', 'K2': 'walk_kernel',
+                'K3': 'resp_kernel', 'K4': 'secular_kernel<2>',
+                'K5': 'secular_kernel<1>', 'K6': 'rf_prep_kernel'}
 WARM_KERNELS = ('K1', 'K2', 'K3')     # the kernels of a late step
+# kernel entries whose ptxas lines tools/kernel_variants.py reports
+PTXAS_KERNELS = ('prep_kernel', 'walk_kernel', 'resp_kernel')
 
 # The H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM bytes/s
 # and float32 operations/s outside the tensor cores.
@@ -133,25 +144,74 @@ def timed(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def profiled(fn, reps, name):
+    """Median device time (ms) of the kernel named ``name`` (a substring
+    of the profiler's kernel name) over ``reps`` calls of ``fn`` under
+    torch.profiler, after one warm-up: the kernel alone, without the
+    wrapper's host time that CUDA events around back-to-back calls
+    hold."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and name in e.name]
+    # the profiler may drop a launch's record, never add one
+    if not 0 < len(us) <= reps:
+        raise AssertionError('the profiler saw %d launches of %s in %d '
+                             'calls' % (len(us), name, reps))
+    return 1e-3 * float(np.median(us))
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
 
 
-def entry(counter, name, source, replaces, err, ms, plain_ms, moved, ops):
+def entry(counter, name, source, replaces, err, ms, plain_ms, moved, ops,
+          wrapper_ms=None):
     """One kernel's record of the JSON line: ``moved`` bytes (each input
     read once, each output written once) and ``ops`` float32 operations
     that this run's inputs need give the bound; ``counter`` names its
-    launch count in :func:`launch_counts`."""
+    launch count in :func:`launch_counts`.  ``ms`` is the kernel's time
+    by CUDA events over back-to-back wrapper calls; for K1, K6 and K4/K5
+    on the cold chunk, whose wrappers take about as long on the host as
+    the kernel on the card, it is None until :func:`profile_kernels`
+    fills in the profiler's device time, and the event time is
+    ``wrapper_ms``."""
     t_bytes = 1e3 * moved / PEAK_BYTES
     t_ops = 1e3 * ops / PEAK_FLOPS
-    return dict(counter=counter, name=name, route='cuda',
-                source='bayhunter_tpu_torch/csrc/' + source,
-                replaces='bayhunter_tpu/ops/' + replaces,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by='bytes' if t_bytes >= t_ops else 'operations',
-                bound_share=max(t_bytes, t_ops) / ms, library_ms=None)
+    rec = dict(counter=counter, name=name, route='cuda',
+               source='bayhunter_tpu_torch/csrc/' + source,
+               replaces='bayhunter_tpu/ops/' + replaces,
+               max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by='bytes' if t_bytes >= t_ops else 'operations',
+               library_ms=None)
+    if wrapper_ms is None:
+        rec['bound_share'] = rec['bound_ms'] / ms
+    else:
+        rec['wrapper_ms'] = wrapper_ms
+    return rec
+
+
+def profile_kernels(torch, dev, kernels):
+    """The profiler's device time of the records that wait for it (K1,
+    K6, K4/K5 on the cold chunk), on inputs made anew.  Runs after the
+    main paths: a torch.profiler session leaves the host's later kernel
+    launches slower, which would lower the rates measured after it."""
+    calls = profiled_calls(*phase_inputs(torch, dev))
+    for k in kernels:
+        if k['ms'] is None:
+            k['ms'] = profiled(calls[k['counter']], KERNEL_REPS,
+                               KERNEL_NAMES[k['counter'][:2]])
+            k['bound_share'] = k['bound_ms'] / k['ms']
 
 
 def grown_models(C, nl, seed=3):
@@ -302,43 +362,98 @@ def check_bitwise(torch, tag, kernel_out, plain_out):
     return err
 
 
-def check_kernels(torch, dev):
-    """Each kernel against its twin on the card at main-path shapes."""
+def phase_inputs(torch, dev):
+    """The kernel phase's inputs of K1, K6 and the cold chunk's K4/K5:
+    the ``tutorial_prf_srf`` evaluator (priors, RF specs), the (NL, C)
+    nuclei of :func:`grown_models` (vpvs 1.73), their (NL, C) layer
+    planes, and the (C, NL) layer arrays of :func:`cold_chunk`."""
     from bayhunter_tpu_torch import bench_config
-    from bayhunter_tpu_torch.ops import prep, resp, rf, swd
-
+    from bayhunter_tpu_torch.ops import voronoi
     _, ev = bench_config.build_prf_srf(dev, iters=ITERS, nl=NL)
     VS, Z, N = grown_models(C_MAIN, NL)
-    vs_t = torch.tensor(VS.T.copy(), device=dev)
-    z_t = torch.tensor(Z.T.copy(), device=dev)
-    n = torch.tensor(N, device=dev)
-    vpvs = torch.full((C_MAIN,), 1.73, dtype=torch.float32, device=dev)
+    nuclei = (torch.tensor(VS.T.copy(), device=dev),
+              torch.tensor(Z.T.copy(), device=dev),
+              torch.tensor(N, device=dev),
+              torch.full((C_MAIN,), 1.73, dtype=torch.float32, device=dev))
+    return (ev, nuclei, voronoi.voronoi_to_layers_T(*nuclei),
+            cold_chunk(torch, dev))
+
+
+def counting_block(spec, cold):
+    """(wvno, omega) of the first block of the cold counting search on the
+    (C, NL) ``cold`` layer arrays: 64 candidates above cm at each of
+    the dispersion target ``spec``'s periods."""
+    import torch
+    from bayhunter_tpu_torch.ops import swd
+    dev = cold[0].device
+    omega = swd.angular_frequencies(spec.periods, dev)[None, :, None]
+    koff = torch.arange(1, swd.KBLOCK + 1, device=dev) * swd.DDC
+    cm, _ = swd.lower_bound(cold[1], cold[2], dim=-1)
+    return omega / (cm[:, None, None] + koff), omega
+
+
+def profiled_calls(ev, nuclei, planes, cold):
+    """{record counter: the wrapper call its times are taken on} of the
+    kernels that the profiler times: K1 with the main path's P-RF target
+    and with tutorial_prf_srf's P- and S-RF targets, K6 (P) at 10,240
+    chains and on the cold chunk, and K4/K5 on the cold chunk's first
+    counting block."""
+    from bayhunter_tpu_torch.ops import prep, swd
+    p = ev.specs[1].p_skm
+    cplanes = tuple(x.T.contiguous() for x in cold)
+    wvno, omega = counting_block(ev.specs[0], cold)
+    return {
+        'K1': lambda: prep.model_operands(*nuclei, ev.priors,
+                                          ev.rf_specs[:1]),
+        'K1_2rf': lambda: prep.model_operands(*nuclei, ev.priors,
+                                              ev.rf_specs),
+        'K6': lambda: prep.rf_operands(*planes, p),
+        'K6_cold': lambda: prep.rf_operands(*cplanes, p),
+        'K4_cold': lambda: swd.secular_values(wvno, omega, *cold, 2),
+        'K5_cold': lambda: swd.secular_values(wvno, omega, *cold, 1)}
+
+
+def check_kernels(torch, dev):
+    """Each kernel against its twin on the card at main-path shapes."""
+    from bayhunter_tpu_torch.ops import prep, resp, rf, swd
+
+    ev, nuclei, planes, cold = phase_inputs(torch, dev)
+    calls = profiled_calls(ev, nuclei, planes, cold)
     out = []
 
     # K1, with the P-RF spec of the main path and with the P- and S-RF
-    # specs of tutorial_prf_srf
+    # specs of tutorial_prf_srf, at 10,240 chains and at a cold chunk's
+    # width; the wrapper's back-to-back calls timed by CUDA events (the
+    # kernel by the profiler, last)
     for specs, counter, tag in (
             (ev.rf_specs[:1], 'K1', 'K1 model operands'),
             (ev.rf_specs, 'K1_2rf', 'K1 model operands (P- and S-RF)')):
-        args = (vs_t, z_t, n, vpvs, ev.priors, specs)
+        args = nuclei + (ev.priors, specs)
+        for C in (C_MAIN, COLD_CHUNK):
+            part = tuple(x[..., :C].contiguous() for x in nuclei) \
+                + args[4:]
+            kv, ksw, krf = prep.model_operands(*part)
+            pv, psw, prf = prep.model_operands_plain(*part)
+            if not torch.equal(kv, pv):
+                raise AssertionError('K1 validity differs from its twin on '
+                                     '%d chains' % int((kv != pv).sum()))
+            log('K1: valid %d/%d, geometry %s' % (
+                int(kv.sum()), C, prep.geometry(C, NL, len(specs))))
+            err = check_bitwise(torch, '%s, %d chains' % (tag, C),
+                                ksw + sum(krf, ()), psw + sum(prf, ()))
+            if C == C_MAIN:
+                err1 = err
         kv, ksw, krf = prep.model_operands(*args)
-        pv, psw, prf = prep.model_operands_plain(*args)
-        if not torch.equal(kv, pv):
-            raise AssertionError('K1 validity differs from its twin on %d '
-                                 'chains' % int((kv != pv).sum()))
-        log('K1: valid %d/%d' % (int(kv.sum()), C_MAIN))
-        err1 = check_bitwise(torch, tag, ksw + sum(krf, ()),
-                             psw + sum(prf, ()))
         out.append(entry(
-            counter, tag, 'prep.cu', 'pallas_prep.py:315', err1,
-            timed(lambda: prep.model_operands(*args), KERNEL_REPS),
+            counter, tag, 'prep.cu', 'pallas_prep.py:315', err1, None,
             timed(lambda: prep.model_operands_plain(*args), 3),
-            nbytes(vs_t, z_t, n, vpvs, kv, *ksw, *sum(krf, ())),
+            nbytes(*nuclei, kv, *ksw, *sum(krf, ())),
             C_MAIN * (OPS['model_fixed'] + NL * (OPS['model_slot']
                                                  + OPS['rf_flatten_slot'])
                       + len(specs) * (OPS['rf_fixed']
                                       + NL * OPS['rf_t0_slot']
-                                      + (NL - 1) * OPS['rf_interface']))))
+                                      + (NL - 1) * OPS['rf_interface'])),
+            timed(calls[counter], KERNEL_REPS)))
 
     # K4 / K5 on the first counting block of the cold search (64
     # candidates above cm at each of the 21 periods)
@@ -373,6 +488,28 @@ def check_kernels(torch, dev):
             nbytes(wvno, omega, k, *lay),
             secular_ops(cand_top, R * swd.KBLOCK, iwave)))
 
+    # K4 / K5 at the cold init's own shape: one chunk of initial models
+    # (one layer over the halfspace), the first counting block; the
+    # wrapper timed by CUDA events (the kernel by the profiler, last)
+    cwvno, comega = counting_block(ev.specs[0], cold)
+    ctop = swd.layer_top(cold[0])
+    for iwave, counter, tag, twin, lay in (
+            (2, 'K4_cold', 'K4 Rayleigh secular values (cold chunk)',
+             swd.dltar4, cold),
+            (1, 'K5_cold', 'K5 Love secular values (cold chunk)',
+             swd.dltar1, (cold[0], cold[2], cold[3]))):
+        k, p = calls[counter](), twin(cwvno, comega, *lay)
+        err = check_bitwise(torch, '%s, %d x %d x %d candidates, top %s'
+                            % (tag, COLD_CHUNK, R, swd.KBLOCK,
+                               sorted(set(ctop.tolist()))), (k,), (p,))
+        out.append(entry(
+            counter, tag, 'secular.cu', 'pallas_secular.py:%d'
+            % (267 if iwave == 2 else 332), err, None,
+            timed(lambda: twin(cwvno, comega, *lay), 3),
+            nbytes(cwvno, comega, k, *lay),
+            secular_ops(ctop, R * swd.KBLOCK, iwave),
+            timed(calls[counter], KERNEL_REPS)))
+
     # K2 for both wave types
     for iwave, counter, tag in (
             (2, 'K2_rayleigh', 'K2 warm root walker (Rayleigh)'),
@@ -386,21 +523,32 @@ def check_kernels(torch, dev):
     # and S operand sets, and on K6's at all nsamp/2 + 1 lanes, as the
     # cold evaluation runs them
     pspec, sspec = ev.specs[1], ev.specs[2]
-    planes = tuple(props[k * NL:(k + 1) * NL] for k in range(4))
     k6 = {}
     for wave in (rf.P_WAVE, rf.SV_WAVE):
         k6[wave] = prep.rf_operands(*planes, pspec.p_skm, wave)
         err6 = check_bitwise(torch, 'K6 RF operands (%s)' % 'PS'[wave],
                              k6[wave], prep.rf_operands_plain(
                                  *planes, pspec.p_skm, wave))
-    out.append(entry(
-        'K6', 'K6 RF operands', 'prep.cu', 'pallas_prep.py:141', err6,
-        timed(lambda: prep.rf_operands(*planes, pspec.p_skm), KERNEL_REPS),
-        timed(lambda: prep.rf_operands_plain(*planes, pspec.p_skm), 3),
-        nbytes(*planes, *k6[rf.P_WAVE]),
-        C_MAIN * (OPS['rf_fixed'] + NL * (OPS['rf_flatten_slot']
-                                          + OPS['rf_t0_slot'])
-                  + (NL - 1) * OPS['rf_interface'])))
+    cplanes = tuple(x.T.contiguous() for x in cold)
+    for wave in (rf.P_WAVE, rf.SV_WAVE):
+        k6c = prep.rf_operands(*cplanes, pspec.p_skm, wave)
+        check_bitwise(torch, 'K6 RF operands (%s, %d-chain cold chunk)'
+                      % ('PS'[wave], COLD_CHUNK), k6c, prep.rf_operands_plain(
+                          *cplanes, pspec.p_skm, wave))
+    k6c = prep.rf_operands(*cplanes, pspec.p_skm)
+    for counter, tag, pl, outs, C in (
+            ('K6', 'K6 RF operands', planes, k6[rf.P_WAVE], C_MAIN),
+            ('K6_cold', 'K6 RF operands (cold chunk)', cplanes, k6c,
+             COLD_CHUNK)):
+        log('%s: geometry %s' % (tag, prep.geometry(C, NL, 1, False)))
+        out.append(entry(
+            counter, tag, 'prep.cu', 'pallas_prep.py:141', err6, None,
+            timed(lambda: prep.rf_operands_plain(*pl, pspec.p_skm), 3),
+            nbytes(*pl, *outs),
+            C * (OPS['rf_fixed'] + NL * (OPS['rf_flatten_slot']
+                                         + OPS['rf_t0_slot'])
+                 + (NL - 1) * OPS['rf_interface']),
+            timed(calls[counter], KERNEL_REPS)))
     depth_row = rf.pack_offsets(NL)['depth']
     for (coefs, pack), cut, wave, counter, tag in (
             (krf[0], pspec.cut, rf.P_WAVE, 'K3_warm',
@@ -452,6 +600,19 @@ def check_kernels(torch, dev):
                          ).sum())))
         log_resp_lane_work(resp, tag, cut, depth, True)
     return out
+
+
+def cold_chunk(torch, dev):
+    """(C, NL) layer arrays h, vp, vs, rho of one cold-init chunk:
+    ``COLD_CHUNK`` initial models as ``tutorial``'s
+    ``init_states_host`` draws them (seed 0; one layer over the
+    halfspace under ``bench_config.PRIORS``)."""
+    from bayhunter_tpu_torch import bench_config
+    from bayhunter_tpu_torch.ops import voronoi
+    sampler, _ = bench_config.build(dev, iters=ITERS, nl=NL)
+    states, _ = sampler.init_states_host(0, COLD_CHUNK)
+    return voronoi.voronoi_to_layers(states.vs, states.z, states.n,
+                                     states.vpvs)
 
 
 def log_resp_lane_work(resp, tag, cut, depth, q):
@@ -766,7 +927,7 @@ def profile_steps(torch, sampler, states, gen):
     busy_ms = 1e-3 * merged_length(
         [(e.time_range.start, e.time_range.end) for e in dev_events])
     kernel_ms = {}
-    for tag, name in KERNEL_NAMES:
+    for tag, name in KERNEL_NAMES.items():
         if tag in WARM_KERNELS:
             kernel_ms[tag] = 1e-3 * sum(e.time_range.elapsed_us()
                                         for e in dev_events
@@ -838,7 +999,18 @@ def main():
         K3_cold=lambda i, t, n: i['K3'] - i['K3_sv'],
         K3_sv=lambda i, t, n: t['K3_sv'] - i['K3_sv'],
         K3r_p=lambda i, t, n: t['K3r'] - t['K3r_sv'],
-        K3r_sv=lambda i, t, n: t['K3r_sv'])
+        K3r_sv=lambda i, t, n: t['K3r_sv'],
+        K4_cold=lambda i, t, n: i['K4'], K5_cold=lambda i, t, n: i['K5'],
+        K6_cold=lambda i, t, n: i['K6'])
+    profile_kernels(torch, dev, kernels)
+    # the cold inits' device time in K4, K5 and K6 at the cold shape:
+    # launches at init times the kernel's time on one cold chunk
+    cold_ms = {k['counter']: k['ms'] for k in kernels
+               if k['counter'].endswith('_cold')}
+    log('cold init, launches x ms at the cold shape: ' + json.dumps({
+        path: {k: [counts[0][k], counts[0][k] * cold_ms[k + '_cold']]
+               for k in ('K4', 'K5', 'K6')}
+        for path, counts in by_path.items() if path != 'synrf_batch'}))
     for k in kernels:
         counter = k.pop('counter')
         rule = rules.get(counter, lambda i, t, n: t[counter])

@@ -7,9 +7,14 @@ bit; and the redesigned K2, K3 and K3r bit for bit at ragged shapes
 frequency lanes), on models whose deepest layer runs from a pure
 halfspace to slot NL - 2, with a water-surface chain for K2 and both
 wave types (K2 at R = 1 stages 128 chains a block, above the 48 KB of
-shared memory a launch gets without opting in); and that K2's, K3's and
-K3r's entry points refuse a launch geometry with too little shared
-memory.
+shared memory a launch gets without opting in); the redesigned K1 and
+K6 bit for bit at ragged shapes (C = 1, 37, 10,237 chains; K1 with 0,
+1, 2 and 4 RF targets of both wave types, with and without the
+low/high-velocity-zone limits; K6 for P and SV) and at 80 layer slots
+(above 48 KB of shared memory), each into device memory filled with NaN
+before the launch, so that an element the kernel never stores shows;
+and that K1's, K2's, K3's, K3r's and K6's entry points refuse a launch
+geometry with too little shared memory.
 
 Needs an NVIDIA GPU and nvcc (marker ``cuda``); skipped elsewhere.  On
 a machine with a card:
@@ -362,3 +367,109 @@ def test_undersized_shared_memory_is_refused(dev, monkeypatch, kernel):
         fn(*args)
     assert counter.launches == before
 
+
+
+def _poison(dev):
+    """Fills freed device memory with NaN: the caching allocator hands
+    it to the next outputs, so that an element a kernel never stores
+    stays NaN and fails the comparison with its twin."""
+    torch.full((1 << 24,), float('nan'), device=dev)
+
+
+def _nuclei(dev, C, nl=NL, seed=19):
+    """(NL, C) nucleus planes vs, z and (C,) n, vpvs of random models
+    with 1..nl nuclei (the first chains 1 and nl), padded as the sampler
+    pads them."""
+    rs = np.random.RandomState(seed)
+    n = rs.randint(1, nl + 1, C).astype(np.int32)
+    n[:2] = [1, nl][:C]
+    vs = np.sort(rs.uniform(2.05, 4.95, (C, nl)), axis=1)
+    z = np.sort(rs.uniform(0.0, 58.0, (C, nl)), axis=1)
+    for i in range(C):
+        vs[i, n[i]:] = vs[i, n[i] - 1]
+        z[i, n[i]:] = 120.0 + np.arange(nl - n[i])
+    return (torch.tensor(vs.T.copy(), dtype=torch.float32, device=dev),
+            torch.tensor(z.T.copy(), dtype=torch.float32, device=dev),
+            torch.tensor(n, device=dev),
+            torch.tensor(rs.uniform(1.6, 1.9, C), dtype=torch.float32,
+                         device=dev))
+
+
+RF_SPECS4 = ((P_SKM, rf.P_WAVE), (5.5 * rf.DEG_PER_KM, rf.SV_WAVE),
+             (7.0 * rf.DEG_PER_KM, rf.P_WAVE), (P_SKM, rf.SV_WAVE))
+PRIORS_ZONES = PRIORS._replace(lvz=0.2, hvz=0.3)
+
+
+def _model_operands_bitwise(dev, nuclei, specs):
+    for priors in (PRIORS, PRIORS_ZONES):
+        args = nuclei + (priors, specs)
+        _poison(dev)
+        before = prep.model_operands.launches
+        kv, ksw, krf = prep.model_operands(*args)
+        assert prep.model_operands.launches == before + 1
+        pv, psw, prf = prep.model_operands_plain(*args)
+        assert torch.equal(kv, pv)
+        assert len(krf) == len(prf) == len(specs)
+        for a, b in zip(ksw + sum(krf, ()), psw + sum(prf, ())):
+            assert a.shape == b.shape
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('n_rf', [0, 1, 2, 4])
+@pytest.mark.parametrize('C', [1, 37, 10237])
+def test_model_operands_ragged_shapes_bitwise(dev, C, n_rf):
+    _model_operands_bitwise(dev, _nuclei(dev, C), RF_SPECS4[:n_rf])
+
+
+@pytest.mark.parametrize('C', [1, 37, 10237])
+def test_rf_operands_ragged_shapes_bitwise(dev, C):
+    planes, _ = _ragged_planes(dev, C, water=False)
+    for wave in (rf.P_WAVE, rf.SV_WAVE):
+        _poison(dev)
+        before = prep.rf_operands.launches
+        kc, kp = prep.rf_operands(*planes, P_SKM, wave)
+        assert prep.rf_operands.launches == before + 1
+        pc, pp = prep.rf_operands_plain(*planes, P_SKM, wave)
+        assert torch.equal(kc, pc) and torch.equal(kp, pp)
+
+
+def test_prep_wide_layers_bitwise(dev):
+    # 80 layer slots: K1 and K6 stage more than the 48 KB a launch gets
+    # without opting in
+    nl, C = 80, 10240
+    assert prep.geometry(C, nl, 2).smem > 48 * 1024
+    assert prep.geometry(C, nl, 1, False).smem > 48 * 1024
+    nuclei = _nuclei(dev, C, nl)
+    _model_operands_bitwise(dev, nuclei, RF_SPECS4[:2])
+    h, vp, vs, rho = prep.model_operands_plain(
+        *nuclei, PRIORS, ())[1][0].reshape(4, nl, C)
+    for wave in (rf.P_WAVE, rf.SV_WAVE):
+        _poison(dev)
+        k = prep.rf_operands(h, vp, vs, rho, P_SKM, wave)
+        p = prep.rf_operands_plain(h, vp, vs, rho, P_SKM, wave)
+        assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+
+
+@pytest.mark.parametrize('kernel', ['K1', 'K6'])
+def test_prep_undersized_shared_memory_is_refused(dev, monkeypatch, kernel):
+    # a geometry one float short of the tile's shared-memory layout: the
+    # entry point refuses it (cudaErrorInvalidConfiguration, 9) before
+    # launching
+    C = 37
+    real = prep.geometry
+
+    def short(*a):
+        geo = real(*a)
+        return geo._replace(smem=geo.smem - 4)
+
+    monkeypatch.setattr(prep, 'geometry', short)
+    if kernel == 'K1':
+        fn = prep.model_operands
+        args = _nuclei(dev, C) + (PRIORS, RF_P)
+    else:
+        fn = prep.rf_operands
+        args = _ragged_planes(dev, C, water=False)[0] + (P_SKM,)
+    before = fn.launches
+    with pytest.raises(RuntimeError, match='CUDA error 9 '):
+        fn(*args)
+    assert fn.launches == before

@@ -1,7 +1,9 @@
 """Launch geometry of the kernels that stage whole chains in shared
-memory (K2 ``ops/walk.py``, K3/K3r ``ops/resp.py``), checked on the CPU:
-every (chain, lane) is served exactly once at ragged shapes, the shared
-bytes fit the card, and a launch above 48 KB opts in to more.
+memory (K2 ``ops/walk.py``, K3/K3r ``ops/resp.py``, K1/K6
+``ops/prep.py``), checked on the CPU: every (chain, lane) is served
+exactly once at ragged shapes, every K1/K6 output element is stored
+exactly once, the shared bytes fit the card, and a launch above 48 KB
+opts in to more; K1's cached launch constants equal freshly built ones.
 """
 
 import os
@@ -10,7 +12,7 @@ import re
 import numpy as np
 import pytest
 
-from bayhunter_tpu_torch.ops import lanes, resp, walk
+from bayhunter_tpu_torch.ops import _ext, lanes, prep, resp, rf, walk
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'bayhunter_tpu_torch', 'csrc')
@@ -103,3 +105,133 @@ def test_larger_layer_counts_shrink_the_walker_block():
     assert geo.threads < walk.MAX_THREADS and geo.smem <= lanes.SMEM_MAX
     with pytest.raises(ValueError):
         walk.geometry(1000, 21, 2000, 2)
+
+
+def _check_prep_stores(C, nl, n_rf, model):
+    geo = prep.geometry(C, nl, n_rf, model)
+    assert geo.threads % lanes.WARP == 0 and geo.threads <= prep.MAX_THREADS
+    assert geo.tile in prep.TILES
+    assert (geo.blocks - 1) * geo.tile < C <= geo.blocks * geo.tile
+    assert geo.smem == 4 * prep.tile_floats(nl, model) * geo.tile
+    assert geo.smem <= lanes.SMEM_MAX
+    rows = {'coefs%d' % s: (nl - 1) * 32 for s in range(n_rf)}
+    rows.update({'pack%d' % s: rf.pack_offsets(nl)['rows']
+                 for s in range(n_rf)})
+    if model:
+        rows.update(props=4 * nl, valid=1, swd=3)
+    # full tiles repeat the first block's map shifted by whole tiles: the
+    # first, a middle and the last (ragged) block
+    for b in sorted({0, geo.blocks // 2, geo.blocks - 1}):
+        stores = prep.item_stores(geo, C, nl, n_rf, b, model)
+        assert sorted(stores) == sorted(rows)
+        chains = np.arange(b * geo.tile, min(C, (b + 1) * geo.tile))
+        for name, idx in stores.items():
+            want = (np.arange(rows[name])[:, None] * C + chains).reshape(-1)
+            assert np.array_equal(np.sort(idx), np.sort(want)), name
+
+
+@pytest.mark.parametrize('n_rf', [0, 1, 2, 4])
+@pytest.mark.parametrize('nl', [2, 21, 64])
+@pytest.mark.parametrize('C', [1, 37, 2048, 10237])
+def test_model_operand_stores_once(C, nl, n_rf):
+    _check_prep_stores(C, nl, n_rf, True)
+
+
+@pytest.mark.parametrize('nl', [2, 21, 64])
+@pytest.mark.parametrize('C', [1, 37, 2048, 10237])
+def test_rf_operand_stores_once(C, nl):
+    _check_prep_stores(C, nl, 1, False)
+
+
+def test_prep_tiles_fill_the_card():
+    # 10,240 chains: tiles of 32, at least two blocks per SM; a
+    # 2,048-chain cold chunk: tiles of 16, a block for nearly every SM
+    for model, n_rf in ((True, 1), (True, 2), (False, 1)):
+        geo = prep.geometry(10240, NL, n_rf, model)
+        assert geo.tile == 32 and geo.blocks >= 2 * lanes.SMS
+        assert geo.threads == prep.MAX_THREADS
+        geo = prep.geometry(2048, NL, n_rf, model)
+        assert geo.tile == 16 and geo.blocks == 128
+
+
+def test_prep_shared_bytes_fit_and_opt_in():
+    assert prep.geometry(10240, 64, 4).smem <= lanes.SMEM_MAX
+    assert prep.geometry(10240, NL, 2).smem <= lanes.SMEM_DEFAULT
+    assert prep.geometry(10240, 64, 1).smem > lanes.SMEM_DEFAULT
+    with pytest.raises(ValueError):
+        prep.geometry(100, 1000, 1)
+    with open(os.path.join(CSRC, 'prep.cu')) as f:
+        src = f.read()
+    # K1 and K6 each opt in exactly when their bytes pass 48 KB
+    guarded = re.findall(r'if \(smem > 48 \* 1024\) \{\s*cudaError_t e = '
+                         r'cudaFuncSetAttribute\(', src)
+    assert len(guarded) == 2 == src.count('cudaFuncSetAttribute')
+    assert re.search(r'constexpr int PREP_MAX_THREADS = (\d+);',
+                     src).group(1) == str(prep.MAX_THREADS)
+    for fn, model in (('prep_floats', True), ('rf_prep_floats', False)):
+        body = re.search(r'int %s\(int nl\) \{ return (.*?); \}' % fn,
+                         src).group(1)
+        for nl in (2, 21, 64):
+            assert eval(body, {'nl': nl}) == prep.tile_floats(nl, model)
+
+
+def _c_fields(src, struct):
+    """(name, C type, array length or None) of a struct in ``src``."""
+    body = re.search(r'struct %s \{(.*?)\};' % struct, src, re.S).group(1)
+    out = []
+    for ctype, names in re.findall(r'(int|float) ([^;]+);', body):
+        for name in names.split(','):
+            m = re.match(r'\s*(\w+)(?:\[(\w+)\])?', name)
+            out.append((m.group(1), ctype, m.group(2)))
+    return out
+
+
+def test_prep_structs_agree_with_ctypes():
+    with open(os.path.join(CSRC, 'prep.cu')) as f:
+        src = f.read()
+    assert re.search(r'#define RF_MAX (\d+)', src).group(1) == str(
+        _ext.RF_MAX)
+    for struct, cls in (('RfSpecs', _ext.RfSpecs),
+                        ('PriorCfg', _ext.PriorCfg)):
+        want = []
+        for name, ctype in cls._fields_:
+            length = getattr(ctype, '_length_', None)
+            base = ctype if length is None else ctype._type_
+            want.append((name, {_ext.ctypes.c_int: 'int',
+                                _ext.ctypes.c_float: 'float'}[base],
+                         None if length is None else 'RF_MAX'))
+        assert _c_fields(src, struct) == want
+
+
+P_SKM = 6.4 * rf.DEG_PER_KM
+
+
+@pytest.mark.parametrize('nl', [2, NL])
+def test_cached_launch_constants_equal_fresh_ones(nl):
+    # specs change between calls: P, then SV, then one set, then two,
+    # then P again: each cached entry equals a freshly built one
+    p, s = (P_SKM, rf.P_WAVE), (5.5 * rf.DEG_PER_KM, rf.SV_WAVE)
+    first = prep.cached_outputs(nl, (p,))
+    for specs in ((p,), (s,), (p, s), (s, p, p, s), (), (p,)):
+        got = prep.cached_outputs(nl, specs)
+        fresh = prep.outputs(nl, specs)
+        assert bytes(got.specs) == bytes(fresh.specs)
+        assert bytes(got.layout) == bytes(fresh.layout)
+        assert got[2:] == fresh[2:]
+        assert got.specs.n == len(specs)
+        for k, (pk, wave) in enumerate(specs):
+            assert got.specs.p[k] == np.float32(pk)
+            assert got.specs.wave[k] == wave
+        # the planes tile the buffer's rows in order: props, [cm; bx;
+        # top], then each target's table and pack at the rows the struct
+        # names
+        starts = np.cumsum((0,) + got.sizes)
+        assert starts[-1] == got.rows
+        assert got.sizes[:2] == (4 * nl, 3)
+        assert got.sizes[2::2] == ((nl - 1) * 32,) * len(specs)
+        assert got.sizes[3::2] == (rf.pack_offsets(nl)['rows'],) * len(
+            specs)
+        assert list(starts[2:-1:2]) == list(got.specs.coefs)[:len(specs)]
+        assert list(starts[3::2]) == list(got.specs.pack)[:len(specs)]
+    assert prep.cached_outputs(nl, (p,)) is first
+    assert bytes(first.specs) == bytes(prep.outputs(nl, (p,)).specs)

@@ -8,17 +8,18 @@ PARENT_DIR holds another tree of the repository (for example the parent
 commit, unpacked with ``git archive``); the other tree is this one.
 Each run is a whole ``chip_smoke.py`` in its tree's root, then this
 tree's ``tools/kernel_variants.py --tree`` on that tree's port (K2 by
-wave and move class, K3 and K3r case by case), in the order parent,
-change, change, parent, change, parent, parent, change, ...
-(``--pairs`` runs of each), its log in ``DIR/pair_N_TREE.log`` (``--out``,
-default ``results/``).  Prints, and writes to ``DIR/chip_pair.json``,
-for each tree:
-each kernel's and each case's event time (median, range) beside the
-kernel's bound, the registers ptxas gave each K2/K3 kernel, each main path's
-proposals/s, cold-init time and reject percentages, whether the main
-paths' accepted and proposed counts agree between the trees run for
-run, and the profile's kernel device times and device events per
-iteration.  Exits non-zero when a run failed.
+wave and move class, K3 and K3r case by case, K1 and K6 by events and
+by the profiler), in the order parent, change, change, parent, change,
+parent, parent, change, ... (``--pairs`` runs of each), its log in
+``DIR/pair_N_TREE.log`` (``--out``, default ``results/``).  Prints, and
+writes to ``DIR/chip_pair.json``, for each tree: each kernel's and
+each case's event time (median, range) beside the kernel's bound, the
+cases' profiler device times (K1, K6), the registers ptxas gave each
+K1/K2/K3/K6 kernel, each main path's proposals/s, cold-init time and
+reject percentages, whether the main paths' accepted and proposed
+counts agree between the trees run for run, and the profile's kernel
+device times and device events per iteration.  Exits non-zero when a
+run failed.
 """
 
 import argparse
@@ -61,7 +62,8 @@ def parse(log):
         elif 'Compiling entry' in line:
             entry = line.split("'")[1]
         elif 'registers' in line and entry is not None:
-            if 'walk_kernel' in entry or 'resp_kernel' in entry:
+            if any(k in entry for k in ('prep_kernel', 'walk_kernel',
+                                        'resp_kernel')):
                 run['regs'][entry] = line.split('ptxas:')[-1].strip()
             entry = None
     return run
@@ -79,14 +81,22 @@ def summary(runs):
     """Per-tree medians and ranges over its runs."""
     out = {'kernels': {}, 'paths': {}, 'regs': runs[0]['regs']}
     for name, k in runs[0]['kernels'].items():
+        recs = [r['kernels'][name] for r in runs]
         out['kernels'][name] = dict(
-            ms=spread([r['kernels'][name]['ms'] for r in runs]),
+            ms=spread([rec['ms'] for rec in recs]),
+            # CUDA events over back-to-back calls: the records' ms, or
+            # where ms is the profiler's (K1, K6, K4/K5 on the cold
+            # chunk), their wrapper_ms
+            events_ms=spread([rec.get('wrapper_ms', rec['ms'])
+                              for rec in recs]),
             bound_ms=k['bound_ms'], bound_by=k['bound_by'],
             plain_ms=spread([r['kernels'][name]['plain_ms'] for r in runs]),
             launches=k['launches'], max_abs_err=max(
                 r['kernels'][name]['max_abs_err'] for r in runs))
     out['cases'] = {name: dict(
         ms=spread([r['cases'][name]['ms_median'] for r in runs]),
+        device_ms=spread([r['cases'][name].get('device_ms_median')
+                          for r in runs]),
         bitwise=all(r['cases'][name]['bitwise'] for r in runs))
         for name in runs[0]['cases']}
     for cfg in runs[0]['paths']:
@@ -171,12 +181,18 @@ def main():
                 'accepted', 'proposed', 'fwd_reject_pct',
                 'fwd_reject_dim_pct'))
             for cfg in p if cfg in c}
-        result['ms_ratio_change_to_parent'] = {
-            name: result['change'][part][name]['ms']['median']
-            / result['parent'][part][name]['ms']['median']
-            for part in ('kernels', 'cases')
-            for name in result['change'][part]
-            if name in result['parent'][part]}
+        def ratio(part, key):
+            ch, pa = result['change'][part], result['parent'][part]
+            return {name: ch[name][key]['median'] / pa[name][key]['median']
+                    for name in ch if name in pa and ch[name][key]
+                    and pa[name][key]}
+
+        # event times (kernel records, cases) and profiler device times
+        # (the K1 and K6 cases), each against the same measure
+        result['ms_ratio_change_to_parent'] = dict(
+            ratio('kernels', 'events_ms'), **ratio('cases', 'ms'))
+        result['device_ms_ratio_change_to_parent'] = ratio('cases',
+                                                           'device_ms')
     with open(os.path.join(out_dir, 'chip_pair.json'), 'w') as f:
         json.dump(result, f, indent=1)
     print(json.dumps(result))

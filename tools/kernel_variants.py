@@ -1,5 +1,5 @@
-"""Time K2, K3 and K3r case by case on one card, and what bit-for-bit
-parity with their twins costs them.
+"""Time K1, K2, K3, K3r and K6 case by case on one card, and what
+bit-for-bit parity with their twins costs them.
 
     python3 tools/kernel_variants.py [--fmad] [--tree DIR] [--rounds N]
                                      [--out DIR]
@@ -7,11 +7,16 @@ parity with their twins costs them.
 The cases are ``chip_smoke.py``'s inputs: 10,240 grown models, K2 from
 their cold roots (both waves; the vs, z and dim settings one case
 each), K3 at 99 lanes on K1's P and S operands and at 257 on K6's, K3r
-on path A's models and Q.  Each case is held against its plain twin
-(bitwise equality, max |error| where both are finite, K2's found-flag
-flips) and timed with CUDA events over chip_smoke.py's ``KERNEL_REPS``
-launches, ``--rounds`` times.  Prints one JSON line per build: its
-ptxas lines (registers, spills) and each case's median and times.
+on path A's models and Q, K1 with no, one and two RF targets (no
+target: the model part alone) and K6 at 10,240 chains and on a cold
+chunk.  Each case is held against its
+plain twin (bitwise equality, max |error| where both are finite, K2's
+found-flag flips) and timed with CUDA events over chip_smoke.py's
+``KERNEL_REPS`` launches, ``--rounds`` times; K1 and K6, whose wrapper
+takes longer on the host than the kernel on the card, also by the
+profiler's device time (median of the launches).  Prints one JSON line
+per build: its ptxas lines (registers, spills) and each case's median
+and times.
 
 ``--tree DIR`` times the port of another tree of the repository (such
 as the parent commit, unpacked with ``git archive``) instead of this
@@ -39,8 +44,8 @@ import chip_smoke as cs  # noqa: E402
 
 
 def ptxas_lines(library):
-    """{kernel entry: 'N registers, ...'} of K2, K3 and K3r, from the
-    nvcc output saved beside ``library`` when it was built."""
+    """{kernel entry: 'N registers, ...'} of K1, K2, K3, K3r and K6,
+    from the nvcc output saved beside ``library`` when it was built."""
     with open(library + '.log') as f:
         log = f.read()
     out, entry = {}, None
@@ -48,7 +53,7 @@ def ptxas_lines(library):
         if 'Compiling entry' in line:
             entry = line.split("'")[1]
         elif 'registers' in line and entry is not None:
-            if 'walk_kernel' in entry or 'resp_kernel' in entry:
+            if any(k in entry for k in cs.PTXAS_KERNELS):
                 out[entry] = line.split('ptxas info    :')[-1].strip()
             entry = None
         elif 'spill' in line and entry is not None:
@@ -57,8 +62,8 @@ def ptxas_lines(library):
 
 
 def inputs(torch, dev):
-    """name -> (function of the wrappers, its twin) at chip_smoke.py's
-    shapes."""
+    """name -> (function of the wrappers, its twin, the profiler's name
+    of its kernel or None) at chip_smoke.py's shapes."""
     from bayhunter_tpu_torch import bench_config
     from bayhunter_tpu_torch.ops import prep, resp, rf, swd, walk
 
@@ -85,7 +90,8 @@ def inputs(torch, dev):
                       slope_prev=slopes if st['cached_slope'] else None)
             cases['%s_%s' % (tag, move)] = (
                 lambda a=wargs, k=kw: walk.warm_roots_walk(*a, **k),
-                lambda a=wargs, k=kw: walk.warm_roots_walk_plain(*a, **k))
+                lambda a=wargs, k=kw: walk.warm_roots_walk_plain(*a, **k),
+                None)
     planes = tuple(props[k * NL:(k + 1) * NL] for k in range(4))
     k6 = prep.rf_operands_plain(*planes, pspec.p_skm, rf.P_WAVE)
     for (coefs, pack), cut, wave, tag in (
@@ -94,7 +100,7 @@ def inputs(torch, dev):
             (k6, pspec.nsamp // 2 + 1, rf.P_WAVE, 'K3_p_257')):
         a = (coefs, pack, cut, pspec.nsamp, pspec.fsamp, wave)
         cases[tag] = (lambda a=a: resp.resp(*a),
-                      lambda a=a: resp.resp_plain(*a))
+                      lambda a=a: resp.resp_plain(*a), None)
     (h, vp, vs, rho), qp, qs = cs.grown_layers(torch, dev)
     qp, qs = qp.T.contiguous(), qs.T.contiguous()
     cut = rf.gauss_cut(512, 5.0, 1.0)
@@ -104,14 +110,35 @@ def inputs(torch, dev):
             6.4 * rf.DEG_PER_KM, wave)
         a = (coefs, pack, qp, qs, cut, 512, 5.0, wave)
         cases[tag] = (lambda a=a: resp.resp_q(*a),
-                      lambda a=a: resp.resp_q_plain(*a))
+                      lambda a=a: resp.resp_q_plain(*a), None)
+    for n_rf in (0, 1, 2):
+        a = args[:5] + (ev.rf_specs[:n_rf],)
+        cases['K1_%drf' % n_rf] = (
+            lambda a=a: prep.model_operands(*a),
+            lambda a=a: prep.model_operands_plain(*a), cs.KERNEL_NAMES['K1'])
+    cold = tuple(x.T.contiguous() for x in cs.cold_chunk(torch, dev))
+    for tag, pl in (('K6_p', planes), ('K6_cold', cold)):
+        a = pl + (pspec.p_skm,)
+        cases[tag] = (lambda a=a: prep.rf_operands(*a),
+                      lambda a=a: prep.rf_operands_plain(*a),
+                      cs.KERNEL_NAMES['K6'])
     return cases
+
+
+def flat(torch, out):
+    """A wrapper's outputs (tensors, nested in tuples) as one flat
+    tuple."""
+    if torch.is_tensor(out):
+        return (out,)
+    return tuple(x for o in out for x in flat(torch, o))
 
 
 def compare(torch, got, want):
     """(bitwise, max |error| of each float output where both are
-    finite, found-flag flips) of a kernel's outputs."""
+    finite, flips of boolean outputs: K2's found, K1's valid) of a
+    kernel's outputs."""
     errs, flips = [], 0
+    got, want = flat(torch, got), flat(torch, want)
     for a, b in zip(got, want):
         if a.dtype == torch.bool:
             flips += int((a != b).sum())
@@ -150,23 +177,31 @@ def main():
         libs['fmad'] = (_ext._build_and_load(flags),
                         ptxas_lines(_ext.library_path(flags)))
     cases = inputs(torch, dev)
-    twins = {k: twin() for k, (_, twin) in cases.items()}
+    twins = {k: twin() for k, (_, twin, _) in cases.items()}
     times = {name: {k: [] for k in cases} for name in libs}
+    device = {name: {k: [] for k, c in cases.items() if c[2]}
+              for name in libs}
     for r in range(opts.rounds):
         for name in (list(libs) if r % 2 == 0 else list(libs)[::-1]):
             _ext._Build.lib = libs[name][0]
-            for k, (fn, _) in cases.items():
+            for k, (fn, _, kernel) in cases.items():
                 times[name][k].append(cs.timed(fn, cs.KERNEL_REPS))
+                if kernel:
+                    device[name][k].append(cs.profiled(fn, cs.KERNEL_REPS,
+                                                       kernel))
     record = {'card': smi, 'builds': {}}
     for name, (lib, ptx) in libs.items():
         _ext._Build.lib = lib
         checks = {k: compare(torch, fn(), twins[k])
-                  for k, (fn, _) in cases.items()}
+                  for k, (fn, _, _) in cases.items()}
         rec = {'build': name, 'ptxas': ptx, 'kernels': {
             k: dict(ms_median=float(np.median(times[name][k])),
                     ms=times[name][k], bitwise=checks[k][0],
                     max_abs_err=checks[k][1], found_flips=checks[k][2])
             for k in cases}}
+        for k, ms in device[name].items():
+            rec['kernels'][k].update(device_ms_median=float(np.median(ms)),
+                                     device_ms=ms)
         record['builds'][name] = rec
         print(json.dumps(rec), flush=True)
     _ext._Build.lib = libs['shipped'][0]
