@@ -88,10 +88,16 @@ SIGNATURES = {
     # wref | threads, tile, cs, smem | czr, czi, crr, cri | stream
     'bh_resp_q': [_P, _P, _P, _P, PackLayout, _I, _I, _I, _I, _I, _F, _F,
                   _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    # K4: wvno, omega, d, a, b, rho | nl, C, L | out | stream
-    'bh_secular4': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
-    # K5: wvno, omega, d, b, rho | nl, C, L | out | stream
-    'bh_secular1': [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # K4: c and its strides over (C, R, K), omega and its strides over
+    # (C, R), d, a, b, rho | nl, C, R, K | threads, tile, smem
+    # (swd.geometry) | out | stream
+    'bh_secular4': [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I,
+                    _I, _I, _I, _I, _P, _P],
+    # K5: as K4 without a
+    'bh_secular1': [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
+                    _I, _I, _I, _P, _P],
+    # K4 (iwave 2) or K5 (1): iwave, threads, smem | blocks per SM
+    'bh_secular_occupancy': [_I, _I, _I, _P],
     # K6: h, vp, vs, rho | nl, C | p, wave, layout | threads, tile,
     # smem (prep.geometry) | out | stream
     'bh_rf_prep': [_P, _P, _P, _P, _I, _I, _F, _I, PackLayout, _I, _I, _I,
@@ -140,6 +146,9 @@ def _build_and_load(flags=NVCC_FLAGS):
     measurement asks for others), loaded with its signatures."""
     out = library_path(flags)
     t0 = time.perf_counter()
+    if os.path.exists(out + '.log'):
+        with open(out + '.log') as f:
+            _Build.log = f.read()
     if not os.path.exists(out):
         nvcc = nvcc_path()
         if nvcc is None:
@@ -186,7 +195,8 @@ def _build_and_load(flags=NVCC_FLAGS):
 
 
 def build_info():
-    """(seconds the last build-and-load took, nvcc's output)."""
+    """(seconds the last build-and-load took, nvcc's output when it
+    built the library, which is kept beside it)."""
     return _Build.seconds, _Build.log
 
 
@@ -213,9 +223,10 @@ def stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def require(t, name, device, dtype, shape):
-    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape``
-    on ``device``, a CUDA device."""
+def require(t, name, device, dtype, shape, contiguous=True):
+    """Raise unless ``t`` is a ``dtype`` tensor of ``shape`` on
+    ``device``, a CUDA device, and contiguous unless the kernel takes
+    its strides (``contiguous=False``)."""
     if device.type != 'cuda':
         raise ValueError('%s is on %s: the kernels take CUDA tensors'
                          % (name, device))
@@ -228,5 +239,5 @@ def require(t, name, device, dtype, shape):
     if tuple(t.shape) != tuple(shape):
         raise ValueError('%s has shape %s, expected %s'
                          % (name, tuple(t.shape), tuple(shape)))
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError('%s must be contiguous' % name)

@@ -12,7 +12,10 @@ Mirrors ``bayhunter_tpu/ops/swd.py``:
     of ``pallas_secular.py`` (reciprocal renormalisation for Rayleigh,
     ``omega`` clamped to 1e-4); the kernels ``secular4`` (K4,
     ``csrc/secular.cu``, replacing ``pallas_secular._dltar4_kernel``)
-    and ``secular1`` (K5, ``_dltar1_kernel``);
+    and ``secular1`` (K5, ``_dltar1_kernel``), which take candidate
+    phase velocities and form the wavenumbers omega / c themselves, a
+    block a tile of whole chains (:func:`geometry`; :func:`store_map`
+    writes out their store map for a CPU test);
   * the cold counting search ``_find_brackets_b`` (``:600-643``) and
     ``_ksection_refine`` (``:518-587``; f32 phase solves: one pass of
     KR = 15 interior points, then the closing secant) — the per-lane
@@ -27,10 +30,16 @@ Rayleigh's, the Rayleigh halfspace ``gtsolh`` of the slowest layer
 (reference ``:1286-1295``).
 """
 
+import ctypes
+import functools
+import math
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from bayhunter_tpu_torch.ops import _ext
+from bayhunter_tpu_torch.ops import lanes as _lanes
 from bayhunter_tpu_torch.ops import walk
 
 TWOPI = 2.0 * np.pi
@@ -248,49 +257,142 @@ def dltar1(wvno, omega, d, b, rho):
     return secular_plain(wvno, omega, d, None, b, rho, layer_top(d), 1)
 
 
-def _launch_secular(name, wvno, omega, layers):
-    """(C, ...) values of K4 (``bh_secular4``) or K5 (``bh_secular1``)
-    on CUDA tensors; ``layers`` the (C, NL) arrays the kernel takes."""
-    dev = wvno.device
+MAX_THREADS = 256   # a block's threads (csrc/secular.cu SECULAR_MAX_THREADS)
+
+
+class Geometry(NamedTuple):
+    """Launch geometry of K4/K5: ``threads`` per block, ``tile`` whole
+    chains per block, ``blocks``, dynamic shared bytes ``smem``."""
+    threads: int
+    tile: int
+    blocks: int
+    smem: int
+
+
+def chain_floats(nl, R, iwave):
+    """Shared floats per chain of K4's (``iwave`` 2) or K5's (1) tile
+    (csrc/secular.cu ``rayleigh_floats``, ``love_floats``): the layer
+    rows d, a (Love: mu), b, rho, the R angular frequencies and the
+    invariant terms of every period at every slot (Rayleigh three, Love
+    one)."""
+    return 4 * nl + R + (3 if iwave == 2 else 1) * R * nl
+
+
+@functools.lru_cache(maxsize=64)
+def geometry(C, R, K, nl, iwave):
+    """K4's or K5's launch geometry for C chains of R periods, K
+    candidates per period and nl layer slots.  A chain's R * K
+    candidates take W = ceil(R K / 32) warp-slots; a tile of
+    ``8 / gcd(W, 8)`` chains (at most C) makes the tile's warp-slots a
+    whole number of rounds of the block's 8 warps, halved while the
+    tile's shared memory would not fit."""
+    warps = MAX_THREADS // _lanes.WARP
+    W = -(-R * K // _lanes.WARP)
+    per_chain = 4 * (chain_floats(nl, R, iwave) + 1)      # + its top
+    if per_chain > _lanes.SMEM_MAX:
+        raise ValueError('K%d: %d periods of %d layer slots need %d bytes '
+                         'of shared memory a chain, above %d'
+                         % (4 if iwave == 2 else 5, R, nl, per_chain,
+                            _lanes.SMEM_MAX))
+    tile = warps // math.gcd(W, warps)
+    while tile * per_chain > _lanes.SMEM_MAX:
+        tile //= 2
+    tile = max(1, min(tile, C))
+    threads = _lanes.WARP * min(warps, tile * W)
+    return Geometry(threads, tile, -(-C // tile), tile * per_chain)
+
+
+def store_map(geo, C, R, K):
+    """(blocks, rounds, threads) int64: the output element ``(chain * R
+    + period) * K + candidate`` that each thread of each block stores in
+    each round, -1 where it idles — the kernels' map, warp ``w`` taking
+    warp-slot ``w + round * warps``, which is chain ``slot // W`` and
+    candidates ``32 (slot % W)`` to ``32 (slot % W) + 31`` of its R K."""
+    T, tile, B = geo.threads, geo.tile, geo.blocks
+    warps = T // _lanes.WARP
+    E = R * K
+    W = -(-E // _lanes.WARP)
+    rounds = -(-tile * W // warps)
+    slot = (np.arange(rounds)[:, None] * warps
+            + np.arange(T)[None, :] // _lanes.WARP)
+    e = slot % W * _lanes.WARP + np.arange(T) % _lanes.WARP
+    chain = np.arange(B)[:, None, None] * tile + slot // W
+    tc = np.minimum(tile, C - np.arange(B) * tile)
+    idle = (e >= E)[None] | (slot[None] >= (tc * W)[:, None, None])
+    return np.where(idle, -1, chain * E + e)
+
+
+def _broadcast_shape(a, b):
+    """The broadcast of shapes ``a`` and ``b`` (what
+    ``torch.broadcast_shapes`` gives, at a fraction of its host time)."""
+    n = max(len(a), len(b))
+    out = []
+    for x, y in zip((1,) * (n - len(a)) + tuple(a),
+                    (1,) * (n - len(b)) + tuple(b)):
+        if x != y and 1 not in (x, y):
+            raise ValueError('shapes %s and %s do not broadcast'
+                             % (tuple(a), tuple(b)))
+        out.append(max(x, y))
+    return tuple(out)
+
+
+def _launch_secular(name, c, omega, layers, iwave):
+    """(C, R) or (C, R, K) values of K4 (``bh_secular4``) or K5
+    (``bh_secular1``) on CUDA tensors at the wavenumbers omega / c;
+    ``layers`` the (C, NL) arrays the kernel takes.  Broadcast inputs
+    go to the kernel with their strides, uncopied."""
+    dev = layers[0].device
     f32 = torch.float32
-    wvno, omega = torch.broadcast_tensors(wvno, omega)
-    shape = wvno.shape
     C, nl = layers[0].shape
-    wv = wvno.reshape(C, -1).contiguous()
-    om = omega.reshape(C, -1).contiguous()
-    L = wv.shape[1]
-    _ext.require(wv, 'wvno', dev, f32, (C, L))
-    _ext.require(om, 'omega', dev, f32, (C, L))
+    shape = _broadcast_shape(c.shape, omega.shape)
+    if len(shape) not in (2, 3) or shape[0] != C:
+        raise ValueError('candidates of shape %s for %d chains: expected '
+                         '(C, R) or (C, R, K)' % (shape, C))
+    R, K = shape[1], shape[2] if len(shape) == 3 else 1
+    cx, ox = c.expand(shape), omega.expand(shape)
+    _ext.require(cx, 'c', dev, f32, shape, contiguous=False)
+    _ext.require(ox, 'omega', dev, f32, shape, contiguous=False)
     for i, x in enumerate(layers):
         _ext.require(x, 'layer array %d' % i, dev, f32, (C, nl))
-    out = torch.empty((C, L), dtype=f32, device=dev)
+    sc = cx.stride() + (0,) * (3 - len(shape))
+    so = ox.stride() + (0,) * (3 - len(shape))
+    if so[2] != 0 and K > 1:
+        raise ValueError('omega varies along the candidate axis')
+    if C * R * K >= 2 ** 31:
+        raise ValueError('%d candidates: above the kernels\' int range'
+                         % (C * R * K))
+    out = torch.empty(shape, dtype=f32, device=dev)
+    geo = geometry(C, R, K, nl, iwave)
     lib = _ext.load()
     with torch.cuda.device(dev):
         rc = getattr(lib, name)(
-            _ext.ptr(wv), _ext.ptr(om), *(_ext.ptr(x) for x in layers), nl,
-            C, L, _ext.ptr(out), _ext.stream(dev))
+            _ext.ptr(c), *sc, _ext.ptr(omega), *so[:2],
+            *(_ext.ptr(x) for x in layers), nl, C, R, K, geo.threads,
+            geo.tile, geo.smem, _ext.ptr(out), _ext.stream(dev))
     _ext.check(rc, name)
-    return out.reshape(shape)
+    return out
 
 
-def secular4(wvno, omega, d, a, b, rho):
-    """K4: Rayleigh secular values of (C, NL) layer arrays at (C, ...)
-    candidates.  CPU tensors run the plain twin :func:`dltar4`; CUDA
-    tensors launch the kernel."""
-    if wvno.device.type == 'cpu':
-        return dltar4(wvno, omega, d, a, b, rho)
-    out = _launch_secular('bh_secular4', wvno, omega, (d, a, b, rho))
+def secular4(c, omega, d, a, b, rho):
+    """K4: Rayleigh secular values of (C, NL) layer arrays at the
+    wavenumbers omega / c of candidate phase velocities ``c`` and
+    angular frequencies ``omega``, (C, R) or (C, R, K) once broadcast
+    (omega constant along K).  CPU tensors run the plain twin
+    :func:`dltar4`; CUDA tensors launch the kernel."""
+    if c.device.type == 'cpu':
+        return dltar4(omega / c, omega, d, a, b, rho)
+    out = _launch_secular('bh_secular4', c, omega, (d, a, b, rho), 2)
     secular4.launches += 1
     return out
 
 
-def secular1(wvno, omega, d, b, rho):
-    """K5: Love secular values of (C, NL) layer arrays at (C, ...)
-    candidates.  CPU tensors run the plain twin :func:`dltar1`; CUDA
-    tensors launch the kernel."""
-    if wvno.device.type == 'cpu':
-        return dltar1(wvno, omega, d, b, rho)
-    out = _launch_secular('bh_secular1', wvno, omega, (d, b, rho))
+def secular1(c, omega, d, b, rho):
+    """K5: Love secular values of (C, NL) layer arrays at the
+    wavenumbers omega / c (as :func:`secular4`).  CPU tensors run the
+    plain twin :func:`dltar1`; CUDA tensors launch the kernel."""
+    if c.device.type == 'cpu':
+        return dltar1(omega / c, omega, d, b, rho)
+    out = _launch_secular('bh_secular1', c, omega, (d, b, rho), 1)
     secular1.launches += 1
     return out
 
@@ -299,12 +401,33 @@ secular4.launches = 0
 secular1.launches = 0
 
 
-def secular_values(wvno, omega, d, a, b, rho, iwave):
+def secular_at(c, omega, d, a, b, rho, iwave):
     """Secular values of wave type ``iwave`` (1 Love: K5, 2 Rayleigh:
-    K4) of (C, NL) layer arrays at (C, ...) candidates."""
+    K4) of (C, NL) layer arrays at the wavenumbers omega / c of
+    candidate phase velocities ``c``: the cold search's callback."""
     if iwave == 1:
-        return secular1(wvno, omega, d, b, rho)
-    return secular4(wvno, omega, d, a, b, rho)
+        return secular1(c, omega, d, b, rho)
+    return secular4(c, omega, d, a, b, rho)
+
+
+def secular_values(wvno, omega, d, a, b, rho, iwave):
+    """The plain twins of K4/K5 by wave type (1 Love :func:`dltar1`, 2
+    Rayleigh :func:`dltar4`) at given wavenumbers, on any device; the
+    kernels take phase velocities (:func:`secular_at`)."""
+    if iwave == 1:
+        return dltar1(wvno, omega, d, b, rho)
+    return dltar4(wvno, omega, d, a, b, rho)
+
+
+def resident_warps(geo, iwave):
+    """Warps of K4 (``iwave`` 2) or K5 (1) that one SM holds at once at
+    the geometry ``geo``: the CUDA occupancy calculator's blocks per SM
+    (registers, shared memory, block limits) times the block's warps."""
+    blocks = ctypes.c_int(0)
+    _ext.check(_ext.load().bh_secular_occupancy(
+        iwave, geo.threads, geo.smem, ctypes.byref(blocks)),
+        'secular occupancy')
+    return blocks.value * geo.threads // _lanes.WARP
 
 
 def gtsolh(a, b):
@@ -347,11 +470,12 @@ def lower_bound(a, b, dim):
 def _find_brackets_b(omega, cm, betmx, secular, K, nblocks):
     """Counting search: walk blocks of K grid points (step DDC) up
     from cm; the first sign change brackets the fundamental mode.  omega
-    (C, R), cm/betmx (C, 1).  Returns (lo, found), each (C, R)."""
+    (C, R), cm/betmx (C, 1); ``secular(c, omega)`` gives the values at
+    the wavenumbers omega / c.  Returns (lo, found), each (C, R)."""
     dtype, dev = omega.dtype, omega.device
     dc = torch.tensor(DDC, dtype=dtype, device=dev)
     koff = torch.arange(1, K + 1, dtype=dtype, device=dev) * dc
-    sign0 = secular(omega / cm, omega) > 0
+    sign0 = secular(cm, omega) > 0
     P = omega.shape
     prev_sign = sign0
     cnt = torch.zeros(P, dtype=torch.int64, device=dev)
@@ -364,7 +488,7 @@ def _find_brackets_b(omega, cm, betmx, secular, K, nblocks):
             break
         c = base[..., None] + koff                        # (C, 1, K)
         valid = c <= limit[..., None]
-        sg = secular(omega[..., None] / c, omega[..., None]) > 0
+        sg = secular(c, omega[..., None]) > 0
         allsg = torch.cat([prev_sign[..., None], sg], dim=-1)
         flips = (allsg[..., 1:] != allsg[..., :-1]) & valid
         cum = cnt[..., None] + torch.cumsum(flips.to(torch.int64), -1)
@@ -393,7 +517,7 @@ def _ksection_refine(omega, lo, secular, KR, niter):
     f_lo = f_hi = torch.zeros_like(lo)
     for _ in range(niter):
         pts = lo[..., None] + (hi - lo)[..., None] * fracs
-        vals = secular(omega[..., None] / pts, omega[..., None])
+        vals = secular(pts, omega[..., None])
         s_lo = vals[..., 0] > 0
         diff = (vals[..., 1:] > 0) != s_lo[..., None]
         idx = torch.argmax(diff.to(torch.int8), dim=-1)
@@ -443,8 +567,8 @@ def surfdisp_roots_cold(h, vp, vs, rho, periods, iwave=2):
     omegas = angular_frequencies(periods, h.device, dtype).expand(
         h.shape[0], -1)
 
-    def secular(wvno, omega):
-        return secular_values(wvno, omega, h, vp, vs, rho, iwave)
+    def secular(c, omega):
+        return secular_at(c, omega, h, vp, vs, rho, iwave)
 
     lo, found = _find_brackets_b(omegas, cm, betmx, secular, KBLOCK,
                                  NBLOCKS)

@@ -9,21 +9,24 @@ SV), K3r RF response (per-layer Q, P and SV), K4/K5 Rayleigh and Love
 secular values, K6 RF operands.  Checks each against its plain PyTorch
 twin on the card at the main paths' shapes (10,240 chains, 21 layer
 slots; K1 with one and with two RF targets, also on 2,048 chains; K4/K5
-on one 64-candidate counting block of 21 periods, on 10,240 grown
-models and on one cold-init chunk of 2,048 initial single-layer models
-as ``init_states_host`` draws them; K6 for P and SV on 10,240 models
+on the first 64-candidate counting block of 21 periods of 10,240 grown
+models, and on one cold-init chunk of 2,048 initial single-layer models
+as ``init_states_host`` draws them at the cold search's three grids,
+sign 0, counting block and refinement; K6 for P and SV on 10,240 models
 and on that chunk; K3 at the warm 99 and the cold 257 frequencies; K3r
 at 99 frequencies on path A's models and Q), timing both with CUDA
 events (K1, K6, and K4/K5 on the cold chunk: the kernel's device time
 by torch.profiler, after the main paths, and the wrapper's back-to-back
-calls by CUDA events beside it) beside the kernel's bound (the larger
-of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s, the
-H100's float32 peak, counted from this run's inputs), and prints K1's,
-K2's, K3's and K6's launch geometry and K2's and K3's
-executed-per-useful lane work.  Runs the ragged
+calls by CUDA events beside it; K4/K5 at 10,240 chains by both) beside
+the kernel's bound (the larger of its bytes over 3.35 TB/s and its
+operations over 67 TFLOP/s, the H100's float32 peak, counted from this
+run's inputs), and prints K1's, K2's, K3's, K4/K5's and K6's launch
+geometry (K4/K5 with the occupancy calculator's resident warps per SM)
+and K2's and K3's executed-per-useful lane work.  Runs the ragged
 shapes of ``tests/test_torch_cuda.py`` (C = 1, 37, 10,237 chains; K2 at
-R = 1, 21, 60 periods, K3/K3r at F = 1, 99, 257 lanes) bit for bit
-against the twins.  Checks the tutorial
+R = 1, 21, 60 periods, K3/K3r at F = 1, 99, 257 lanes; K4/K5 on C = 1,
+7, 2,051 chains of 2, 21, 64 slots) bit for bit against the twins.
+Checks the tutorial
 truth model against the committed golden data
 (``tests/fixtures/st3_*.dat``): the cold Rayleigh and Love solves (K4,
 K5), the cold P and S receiver functions (K6, K3 at 257 frequencies),
@@ -48,8 +51,9 @@ every launch count set to 0 just before it and read just after:
 
 Last it profiles the late steps of ``tutorial``: host-clock time per
 move, and under ``torch.profiler`` the device's busy and idle share and
-each kernel's device time, and logs each cold init's K4, K5 and K6
-launches times their time on the cold chunk.  It prints one line per
+each kernel's device time, and each configuration's cold init: its wall
+time, and under the profiler the device time of K3, K4, K5 and K6 and
+the device's busy time.  It prints one line per
 phase (the host CPU among them, since the host-side work sets the
 rate), the card's name and power limit, the kernels' JSON line, and
 last
@@ -83,7 +87,8 @@ KERNEL_NAMES = {'K1': '::prep_kernel(', 'K2': 'walk_kernel',
                 'K5': 'secular_kernel<1>', 'K6': 'rf_prep_kernel'}
 WARM_KERNELS = ('K1', 'K2', 'K3')     # the kernels of a late step
 # kernel entries whose ptxas lines tools/kernel_variants.py reports
-PTXAS_KERNELS = ('prep_kernel', 'walk_kernel', 'resp_kernel')
+PTXAS_KERNELS = ('prep_kernel', 'walk_kernel', 'resp_kernel',
+                 'secular_kernel')
 
 # The H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM bytes/s
 # and float32 operations/s outside the tensor cores.
@@ -155,14 +160,21 @@ def profiled(fn, reps, name):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and name in e.name]
-    # the profiler may drop a launch's record, never add one
+    # the profiler may drop a launch's record, or now and then all of a
+    # session's (PERF.md), never add one: a session that recorded none
+    # is run again, at most three in all
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and name in e.name]
+        if us:
+            break
+        log('the profiler recorded no launch of %s in %d calls; '
+            'profiling again' % (name, reps))
     if not 0 < len(us) <= reps:
         raise AssertionError('the profiler saw %d launches of %s in %d '
                              'calls' % (len(us), name, reps))
@@ -203,15 +215,25 @@ def entry(counter, name, source, replaces, err, ms, plain_ms, moved, ops,
 
 def profile_kernels(torch, dev, kernels):
     """The profiler's device time of the records that wait for it (K1,
-    K6, K4/K5 on the cold chunk), on inputs made anew.  Runs after the
+    K6, K4/K5 on the cold chunk) and of K4/K5 at 10,240 chains
+    (``device_ms``, beside their event time), on inputs made anew, and a
+    log of K4/K5 on the cold chunk's other two grids.  Runs after the
     main paths: a torch.profiler session leaves the host's later kernel
     launches slower, which would lower the rates measured after it."""
-    calls = profiled_calls(*phase_inputs(torch, dev))
+    calls = profiled_calls(torch, *phase_inputs(torch, dev))
     for k in kernels:
         if k['ms'] is None:
             k['ms'] = profiled(calls[k['counter']], KERNEL_REPS,
                                KERNEL_NAMES[k['counter'][:2]])
             k['bound_share'] = k['bound_ms'] / k['ms']
+        elif k['counter'] in ('K4', 'K5'):
+            k['device_ms'] = profiled(calls[k['counter']], KERNEL_REPS,
+                                      KERNEL_NAMES[k['counter']])
+    log('K4/K5 on the cold chunk\'s sign-0 and refine grids, device ms '
+        '(profiler): ' + json.dumps({
+            key: profiled(call, KERNEL_REPS, KERNEL_NAMES[key[:2]])
+            for key, call in calls.items()
+            if key[2:].startswith('_cold_')}))
 
 
 def grown_models(C, nl, seed=3):
@@ -379,38 +401,101 @@ def phase_inputs(torch, dev):
             cold_chunk(torch, dev))
 
 
-def counting_block(spec, cold):
-    """(wvno, omega) of the first block of the cold counting search on the
-    (C, NL) ``cold`` layer arrays: 64 candidates above cm at each of
-    the dispersion target ``spec``'s periods."""
-    import torch
+def secular_grids(torch, layers, omegas):
+    """The cold search's three candidate grids on the (C, NL) ``layers``
+    at the angular frequencies ``omegas`` (R,), each broadcast as the
+    search's drivers pass it to K4/K5 (``swd._find_brackets_b``,
+    ``_ksection_refine``): name -> (velocities, frequencies).  ``sign0``:
+    cm (C, 1) against (C, R); ``count``: the first counting block, 64
+    velocities above cm, (C, 1, 64) against (C, R, 1); ``refine``: 17
+    points across the DDC step of each period's Rayleigh bracket, which
+    the counting search finds (K4), (C, R, 17) against (C, R, 1)."""
     from bayhunter_tpu_torch.ops import swd
-    dev = cold[0].device
-    omega = swd.angular_frequencies(spec.periods, dev)[None, :, None]
+    dev = layers[0].device
+    C, R = layers[0].shape[0], omegas.shape[0]
+    omega = omegas.expand(C, R)
+    cm, betmx = (x[:, None] for x in swd.lower_bound(layers[1], layers[2],
+                                                     dim=-1))
     koff = torch.arange(1, swd.KBLOCK + 1, device=dev) * swd.DDC
-    cm, _ = swd.lower_bound(cold[1], cold[2], dim=-1)
-    return omega / (cm[:, None, None] + koff), omega
+    lo, _ = swd._find_brackets_b(
+        omega, cm, betmx, lambda c, om: swd.secular_at(c, om, *layers, 2),
+        swd.KBLOCK, swd.NBLOCKS)
+    fracs = (torch.arange(0, swd.KREFINE + 2, device=dev)
+             / (swd.KREFINE + 1))
+    return {'sign0': (cm, omega),
+            'count': (cm[..., None] + koff, omega[..., None]),
+            'refine': (lo[..., None] + swd.DDC * fracs, omega[..., None])}
 
 
-def profiled_calls(ev, nuclei, planes, cold):
+def regime_split(torch, layers, c, omega, iwave):
+    """Share of the (warp, applied layer) pairs of a K4 (``iwave`` 2) or
+    K5 (1) launch on the grid (c, omega) whose lanes split between the
+    propagating and the evanescent branch of the layer's P or S term
+    (``secular.cuh`` ``var_quantities``), so that the warp runs both: a
+    warp takes 32 consecutive candidates of one chain's R * K."""
+    from bayhunter_tpu_torch.ops import swd
+    h, vp, vs, _ = layers
+    C = h.shape[0]
+    shape = torch.broadcast_shapes(c.shape, omega.shape)
+    om = torch.clamp(omega, min=1.0e-4).expand(shape).reshape(C, -1)
+    wvno = (omega / c).expand(shape).reshape(C, -1)
+    E = wvno.shape[1]
+    pad = -(-E // 32) * 32 - E
+    live = torch.arange(E + pad, device=h.device) < E
+    top = swd.layer_top(h)
+    water = vs[:, 0] <= 0.0
+    split = total = 0
+    for l in range(int(top.max()) + 1):
+        applied = (top >= l) & ~(water & (l == 0))
+        mixed = torch.zeros((C, (E + pad) // 32), dtype=torch.bool,
+                            device=h.device)
+        speeds = (vp, vs) if iwave == 2 else (torch.where(
+            vs > 0.0, vs, torch.ones_like(vs)),)
+        for v in speeds:
+            prop = torch.nn.functional.pad(wvno < om / v[:, l:l + 1],
+                                           (0, pad))
+            prop = prop.reshape(C, -1, 32)
+            lanes = live.reshape(-1, 32)
+            mixed |= (prop & lanes).any(-1) & (~prop & lanes).any(-1)
+        split += int((mixed & applied[:, None]).sum())
+        total += int(applied.sum()) * mixed.shape[1]
+    return split / max(total, 1)
+
+
+def secular_call(layers, c, omega, iwave):
+    """K4 (``iwave`` 2) or K5 (1) on a grid: the wrapper call that the
+    records time."""
+    from bayhunter_tpu_torch.ops import swd
+    return lambda: swd.secular_at(c, omega, *layers, iwave)
+
+
+def profiled_calls(torch, ev, nuclei, planes, cold):
     """{record counter: the wrapper call its times are taken on} of the
     kernels that the profiler times: K1 with the main path's P-RF target
     and with tutorial_prf_srf's P- and S-RF targets, K6 (P) at 10,240
-    chains and on the cold chunk, and K4/K5 on the cold chunk's first
-    counting block."""
-    from bayhunter_tpu_torch.ops import prep, swd
+    chains and on the cold chunk, K4/K5 on the first counting block of
+    the 10,240 grown models and on the cold chunk's three grids
+    (``K4_cold`` its counting block, ``K4_cold_sign0``,
+    ``K4_cold_refine``)."""
+    from bayhunter_tpu_torch.ops import prep
     p = ev.specs[1].p_skm
     cplanes = tuple(x.T.contiguous() for x in cold)
-    wvno, omega = counting_block(ev.specs[0], cold)
-    return {
+    grown = tuple(x.T.contiguous() for x in planes)
+    omegas = ev.specs[0].omegas
+    calls = {
         'K1': lambda: prep.model_operands(*nuclei, ev.priors,
                                           ev.rf_specs[:1]),
         'K1_2rf': lambda: prep.model_operands(*nuclei, ev.priors,
                                               ev.rf_specs),
         'K6': lambda: prep.rf_operands(*planes, p),
-        'K6_cold': lambda: prep.rf_operands(*cplanes, p),
-        'K4_cold': lambda: swd.secular_values(wvno, omega, *cold, 2),
-        'K5_cold': lambda: swd.secular_values(wvno, omega, *cold, 1)}
+        'K6_cold': lambda: prep.rf_operands(*cplanes, p)}
+    for kernel, iwave in (('K4', 2), ('K5', 1)):
+        calls[kernel] = secular_call(
+            grown, *secular_grids(torch, grown, omegas)['count'], iwave)
+        for name, grid in secular_grids(torch, cold, omegas).items():
+            key = kernel + '_cold' + ('' if name == 'count' else '_' + name)
+            calls[key] = secular_call(cold, *grid, iwave)
+    return calls
 
 
 def check_kernels(torch, dev):
@@ -418,7 +503,7 @@ def check_kernels(torch, dev):
     from bayhunter_tpu_torch.ops import prep, resp, rf, swd
 
     ev, nuclei, planes, cold = phase_inputs(torch, dev)
-    calls = profiled_calls(ev, nuclei, planes, cold)
+    calls = profiled_calls(torch, ev, nuclei, planes, cold)
     out = []
 
     # K1, with the P-RF spec of the main path and with the P- and S-RF
@@ -455,60 +540,61 @@ def check_kernels(torch, dev):
                                       + (NL - 1) * OPS['rf_interface'])),
             timed(calls[counter], KERNEL_REPS)))
 
-    # K4 / K5 on the first counting block of the cold search (64
-    # candidates above cm at each of the 21 periods)
+    # K4 / K5 on the first counting block of the cold search on the
+    # 10,240 grown models (64 candidates above cm at each of the 21
+    # periods), and on the cold chunk of initial models (one layer over
+    # the halfspace) at the search's three grids; the counting block on
+    # the cold chunk by the profiler's device time (last) and the
+    # wrapper's by CUDA events
     props, cm, bx, top = ksw
     layers = tuple(props[k * NL:(k + 1) * NL].T.contiguous()
                    for k in range(4))
     spec = ev.specs[0]
-    omega = swd.angular_frequencies(spec.periods, dev)[None, :, None]
-    koff = torch.arange(1, swd.KBLOCK + 1, device=dev) * swd.DDC
-    wvno = omega / (cm[:, None, None] + koff)
-    R = omega.shape[1]
-    cand_top = swd.layer_top(layers[0])
-    for iwave, counter, tag, twin in (
+    R = spec.omegas.shape[0]
+    grown = tuple(x.T.contiguous() for x in planes)
+    for iwave, kernel, tag, twin in (
             (2, 'K4', 'K4 Rayleigh secular values', swd.dltar4),
             (1, 'K5', 'K5 Love secular values', swd.dltar1)):
-        lay = layers if iwave == 2 else (layers[0], layers[2], layers[3])
-
-        def kernel():
-            return swd.secular_values(wvno, omega, *layers, iwave)
-
-        def plain():
-            return twin(wvno, omega, *lay)
-
-        k, p = kernel(), plain()
-        err = check_bitwise(torch, '%s, %d x %d x %d candidates, |values| '
-                            'up to %.3g' % (tag, C_MAIN, R, swd.KBLOCK,
-                                            float(p.abs().max())), (k,), (p,))
-        out.append(entry(
-            counter, tag, 'secular.cu', 'pallas_secular.py:%d'
-            % (267 if iwave == 2 else 332), err,
-            timed(kernel, KERNEL_REPS), timed(plain, 3),
-            nbytes(wvno, omega, k, *lay),
-            secular_ops(cand_top, R * swd.KBLOCK, iwave)))
-
-    # K4 / K5 at the cold init's own shape: one chunk of initial models
-    # (one layer over the halfspace), the first counting block; the
-    # wrapper timed by CUDA events (the kernel by the profiler, last)
-    cwvno, comega = counting_block(ev.specs[0], cold)
-    ctop = swd.layer_top(cold[0])
-    for iwave, counter, tag, twin, lay in (
-            (2, 'K4_cold', 'K4 Rayleigh secular values (cold chunk)',
-             swd.dltar4, cold),
-            (1, 'K5_cold', 'K5 Love secular values (cold chunk)',
-             swd.dltar1, (cold[0], cold[2], cold[3]))):
-        k, p = calls[counter](), twin(cwvno, comega, *lay)
-        err = check_bitwise(torch, '%s, %d x %d x %d candidates, top %s'
-                            % (tag, COLD_CHUNK, R, swd.KBLOCK,
-                               sorted(set(ctop.tolist()))), (k,), (p,))
-        out.append(entry(
-            counter, tag, 'secular.cu', 'pallas_secular.py:%d'
-            % (267 if iwave == 2 else 332), err, None,
-            timed(lambda: twin(cwvno, comega, *lay), 3),
-            nbytes(cwvno, comega, k, *lay),
-            secular_ops(ctop, R * swd.KBLOCK, iwave),
-            timed(calls[counter], KERNEL_REPS)))
+        replaces = 'pallas_secular.py:%d' % (267 if iwave == 2 else 332)
+        for counter, lay, grids in (
+                (kernel, grown, {'count': secular_grids(
+                    torch, grown, spec.omegas)['count']}),
+                (kernel + '_cold', cold,
+                 secular_grids(torch, cold, spec.omegas))):
+            C = lay[0].shape[0]
+            top_c = swd.layer_top(lay[0])
+            args = lay if iwave == 2 else (lay[0], lay[2], lay[3])
+            for name, (c, omega) in grids.items():
+                k = secular_call(lay, c, omega, iwave)()
+                p = twin(omega / c, omega, *args)
+                shape = 'x'.join(map(str, k.shape))
+                err = check_bitwise(
+                    torch, '%s, %s grid, %s candidates, tops %d..%d, '
+                    '|values| up to %.3g' % (
+                        tag, name, shape, int(top_c.min()),
+                        int(top_c.max()), float(p.abs().max())), (k,), (p,))
+                geo = swd.geometry(C, R, k.shape[-1] if k.ndim == 3 else 1,
+                                   NL, iwave)
+                log('%s, %s grid %s: geometry %s, %d shared bytes a block, '
+                    '%d resident warps per SM (occupancy calculator), '
+                    '%.4f of (warp, layer) pairs split between the '
+                    'propagating and the evanescent branch'
+                    % (tag, name, shape, geo, geo.smem,
+                       swd.resident_warps(geo, iwave),
+                       regime_split(torch, lay, c, omega, iwave)))
+                if name != 'count':
+                    continue
+                call = secular_call(lay, c, omega, iwave)
+                cold_rec = counter.endswith('_cold')
+                events = timed(call, KERNEL_REPS)
+                out.append(entry(
+                    counter, tag + (' (cold chunk)' if cold_rec else ''),
+                    'secular.cu', replaces, err,
+                    None if cold_rec else events,
+                    timed(lambda: twin(omega / c, omega, *args), 3),
+                    nbytes(c, spec.omegas, k, *args),
+                    secular_ops(top_c, R * swd.KBLOCK, iwave),
+                    events if cold_rec else None))
 
     # K2 for both wave types
     for iwave, counter, tag in (
@@ -625,10 +711,12 @@ def log_resp_lane_work(resp, tag, cut, depth, q):
 
 
 def check_ragged(torch, dev):
-    """The redesigned K2, K3 and K3r against their twins bit for bit at
-    the ragged shapes of tests/test_torch_cuda.py: C = 1, 37, 10,237
-    chains, R = 1, 21, 60 periods (K2, both waves, the three move
-    classes), F = 1, 99, 257 lanes (K3 and K3r, P and SV)."""
+    """The redesigned K2, K3, K3r, K4 and K5 against their twins bit for
+    bit at the ragged shapes of tests/test_torch_cuda.py: C = 1, 37,
+    10,237 chains, R = 1, 21, 60 periods (K2, both waves, the three move
+    classes), F = 1, 99, 257 lanes (K3 and K3r, P and SV); C = 1, 7,
+    2,051 chains of 2, 21 and 64 layer slots, 21 or 60 periods of 1, 17
+    or 64 candidates (K4 and K5, into NaN-filled memory)."""
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(here, 'tests'))
     import test_torch_cuda as cases
@@ -643,8 +731,13 @@ def check_ragged(torch, dev):
             for q in (False, True):
                 cases.test_response_ragged_shapes_bitwise(dev, C, F, q)
                 n += 1
-    log('ragged shapes: %d K2 and K3/K3r cases bit for bit equal to their '
-        'twins in %.1f s' % (n, time.perf_counter() - t0))
+    for C in (1, 7, 2051):
+        for R, K in cases.SECULAR_SHAPES:
+            for nl in (2, 21, 64):
+                cases.test_secular_ragged_shapes_bitwise(dev, C, R, K, nl)
+                n += 1
+    log('ragged shapes: %d K2, K3/K3r and K4/K5 cases bit for bit equal to '
+        'their twins in %.1f s' % (n, time.perf_counter() - t0))
 
 
 def tutorial_layers(torch, dev):
@@ -719,12 +812,16 @@ def check_golden(torch, dev):
         # K3r: uniform Q as per-layer arrays
         vs0 = float(vs[0, 0])
         vpvs0 = float(vp[0, 0]) / vs0
-        y = rf.synrf(h[:, 0], vp[:, 0], vs[:, 0], rho[:, 0],
-                     torch.full((NL,), 500.0, device=dev),
-                     torch.full((NL,), 225.0, device=dev), 6.4, 1.0, nsamp,
-                     fsamp, tshift, vs0,
-                     (2.0 - vpvs0 ** 2) / (2.0 - 2.0 * vpvs0 ** 2),
-                     wave_type=wave)
+        fz, fr, y = rf.synrf(h[:, 0], vp[:, 0], vs[:, 0], rho[:, 0],
+                             torch.full((NL,), 500.0, device=dev),
+                             torch.full((NL,), 225.0, device=dev), 6.4,
+                             1.0, nsamp, fsamp, tshift, vs0,
+                             (2.0 - vpvs0 ** 2) / (2.0 - 2.0 * vpvs0 ** 2),
+                             wave_type=wave)
+        if not all(x.shape == (nsamp,) and bool(torch.isfinite(x).all())
+                   for x in (fz, fr, y)):
+            raise AssertionError('synrf (%s): traces not finite of shape '
+                                 '(%d,)' % (name, nsamp))
         q_errs['synrf array-Q ' + name] = float(np.abs(
             y[:201].cpu().numpy() - obs).max())
     log('golden: tutorial model max |err| ' + json.dumps(errs)
@@ -944,6 +1041,41 @@ def profile_steps(torch, sampler, states, gen):
         raise AssertionError('the profile missed a kernel of the path')
 
 
+def profile_cold_inits(torch, dev):
+    """Each configuration's cold init of ``C_MAIN`` chains: wall time on
+    the host clock (synchronised), then once more under torch.profiler
+    the device time of K3, K4, K5 and K6 and the device's busy time;
+    the host's share of the cold init is the wall time less the busy
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from bayhunter_tpu_torch import bench_config
+
+    stats = {}
+    for name in ('tutorial', 'tutorial_rl_prf', 'tutorial_prf_srf'):
+        sampler, _ = bench_config.build_config(name, dev, iters=ITERS, nl=NL)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sampler.init_states_host(0, C_MAIN)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sampler.init_states_host(0, C_MAIN)
+            torch.cuda.synchronize()
+        dev_events = [e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA]
+        stats[name] = dict(
+            wall_ms=wall_ms, device_busy_ms=1e-3 * merged_length(
+                [(e.time_range.start, e.time_range.end)
+                 for e in dev_events]),
+            kernel_device_ms={k: 1e-3 * sum(
+                e.time_range.elapsed_us() for e in dev_events
+                if KERNEL_NAMES[k] in e.name)
+                for k in ('K3', 'K4', 'K5', 'K6')})
+    log('cold init profile: ' + json.dumps(stats))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1003,14 +1135,7 @@ def main():
         K4_cold=lambda i, t, n: i['K4'], K5_cold=lambda i, t, n: i['K5'],
         K6_cold=lambda i, t, n: i['K6'])
     profile_kernels(torch, dev, kernels)
-    # the cold inits' device time in K4, K5 and K6 at the cold shape:
-    # launches at init times the kernel's time on one cold chunk
-    cold_ms = {k['counter']: k['ms'] for k in kernels
-               if k['counter'].endswith('_cold')}
-    log('cold init, launches x ms at the cold shape: ' + json.dumps({
-        path: {k: [counts[0][k], counts[0][k] * cold_ms[k + '_cold']]
-               for k in ('K4', 'K5', 'K6')}
-        for path, counts in by_path.items() if path != 'synrf_batch'}))
+    profile_cold_inits(torch, dev)
     for k in kernels:
         counter = k.pop('counter')
         rule = rules.get(counter, lambda i, t, n: t[counter])

@@ -13,8 +13,13 @@ K6 bit for bit at ragged shapes (C = 1, 37, 10,237 chains; K1 with 0,
 low/high-velocity-zone limits; K6 for P and SV) and at 80 layer slots
 (above 48 KB of shared memory), each into device memory filled with NaN
 before the launch, so that an element the kernel never stores shows;
-and that K1's, K2's, K3's, K3r's and K6's entry points refuse a launch
-geometry with too little shared memory.
+K4 and K5 bit for bit at ragged shapes (C = 1, 7, 2,051 chains; 21
+and 60 periods of 1, 17 or 64 candidates; 2, 21 and 64 layer slots,
+with a pure halfspace and a water top) and at the cold search's three
+grids as its drivers broadcast them, on single-layer and ragged models,
+into NaN-filled memory; and that K1's, K2's, K3's, K3r's, K4's, K5's
+and K6's entry points refuse a launch geometry with too little shared
+memory.
 
 Needs an NVIDIA GPU and nvcc (marker ``cuda``); skipped elsewhere.  On
 a machine with a card:
@@ -122,15 +127,14 @@ def test_secular_kernels_match_twins_bitwise(dev, iwave):
     c = 2.0 + 2.8 * torch.rand((C, R, K), generator=gen, device=dev)
     omega = swd.angular_frequencies(np.linspace(1, 41, R), dev)[None, :,
                                                                 None]
-    wvno = omega / c
     counter = swd.secular1 if iwave == 1 else swd.secular4
     before = counter.launches
-    k = swd.secular_values(wvno, omega, h, vp, vs, rho, iwave)
+    k = swd.secular_at(c, omega, h, vp, vs, rho, iwave)
     assert counter.launches == before + 1
     if iwave == 1:
-        p = swd.dltar1(wvno, omega, h, vs, rho)
+        p = swd.dltar1(omega / c, omega, h, vs, rho)
     else:
-        p = swd.dltar4(wvno, omega, h, vp, vs, rho)
+        p = swd.dltar4(omega / c, omega, h, vp, vs, rho)
     assert k.shape == (C, R, K)
     assert bool(torch.isfinite(k).all())
     assert torch.equal(k, p)
@@ -238,17 +242,17 @@ def test_model_operands_two_rf_targets_bitwise(dev):
     assert not torch.equal(krf[0][1][t0], krf[1][1][t0])
 
 
-def _ragged_planes(dev, C, water=True, seed=13):
-    """(NL, C) planes h, vp, vs, rho and (C,) float top of random models
-    whose deepest layer ``top`` runs over -1..NL-2 (the first chains
-    take -1 and NL - 2); slots below top are halfspace copies of zero
+def _ragged_planes(dev, C, water=True, seed=13, nl=NL):
+    """(nl, C) planes h, vp, vs, rho and (C,) float top of random models
+    whose deepest layer ``top`` runs over -1..nl-2 (the first chains
+    take -1 and nl - 2); slots below top are halfspace copies of zero
     thickness, and with ``water`` chain C // 2 has a water layer on
     top."""
     rs = np.random.RandomState(seed)
-    top = rs.randint(-1, NL - 1, C)
-    top[:2] = [-1, NL - 2][:C]
-    vs = np.sort(rs.uniform(2.0, 4.8, (C, NL)), axis=1)
-    h = rs.uniform(0.5, 8.0, (C, NL))
+    top = rs.randint(-1, nl - 1, C)
+    top[:2] = [-1, nl - 2][:C]
+    vs = np.sort(rs.uniform(2.0, 4.8, (C, nl)), axis=1)
+    h = rs.uniform(0.5, 8.0, (C, nl))
     for i in range(C):
         h[i, top[i] + 1:] = 0.0
         vs[i, top[i] + 1:] = vs[i, -1]
@@ -256,7 +260,7 @@ def _ragged_planes(dev, C, water=True, seed=13):
     rho = 0.32 * vp + 0.77
     if water and C > 2:
         w = C // 2
-        top[w] = max(top[w], 2)
+        top[w] = max(top[w], min(2, nl - 2))
         h[w, :top[w] + 1] = np.maximum(h[w, :top[w] + 1], 0.5)
         vs[w, 0], vp[w, 0], rho[w, 0] = 0.0, 1.5, 1.03
     planes = tuple(torch.tensor(x.T.copy(), dtype=torch.float32, device=dev)
@@ -473,3 +477,101 @@ def test_prep_undersized_shared_memory_is_refused(dev, monkeypatch, kernel):
     with pytest.raises(RuntimeError, match='CUDA error 9 '):
         fn(*args)
     assert fn.launches == before
+
+
+# K4/K5's grids: the cold search's sign-0 (K = 1), refine (17) and
+# counting-block (64) shapes at 21 periods, and a wide one
+SECULAR_SHAPES = ((21, 1), (21, 17), (21, 64), (60, 64))
+
+
+def _secular_bitwise(dev, layers, c, omega, iwave):
+    """K4 (``iwave`` 2) or K5 (1) at the candidates (c, omega) into
+    NaN-filled memory, bit for bit against its twin at omega / c."""
+    counter = swd.secular1 if iwave == 1 else swd.secular4
+    _poison(dev)
+    before = counter.launches
+    k = swd.secular_at(c, omega, *layers, iwave)
+    assert counter.launches == before + 1
+    p = swd.secular_values(omega / c, omega, *layers, iwave)
+    assert k.shape == p.shape
+    assert bool(torch.isfinite(p).all())
+    assert torch.equal(k, p)
+
+
+@pytest.mark.parametrize('nl', [2, 21, 64])
+@pytest.mark.parametrize('R,K', SECULAR_SHAPES)
+@pytest.mark.parametrize('C', [1, 7, 2051])
+def test_secular_ragged_shapes_bitwise(dev, C, R, K, nl):
+    # models from a pure halfspace to slot nl - 2, a water layer on
+    # chain C // 2; random velocities (C, R, K) at R periods (R,)
+    planes, _ = _ragged_planes(dev, C, nl=nl)
+    layers = tuple(x.T.contiguous() for x in planes)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(C + R + K + nl)
+    c = 2.0 + 2.8 * torch.rand((C, R, K), generator=gen, device=dev)
+    omega = swd.angular_frequencies(np.linspace(1.0, 60.0, R), dev)
+    for iwave in (2, 1):
+        _secular_bitwise(dev, layers, c, omega[None, :, None], iwave)
+
+
+def _cold_models(dev, C, seed=29):
+    """(C, NL) layer arrays of C single-layer models (one layer over
+    the halfspace, as cold init draws them) and of the ragged models of
+    :func:`_ragged_planes` (a pure halfspace, a water top, 5-8 layer
+    chains among them)."""
+    rs = np.random.RandomState(seed)
+    h = np.zeros((C, NL), np.float32)
+    h[:, 0] = rs.uniform(1.0, 60.0, C)
+    vs = np.empty((C, NL), np.float32)
+    vs[:, 0] = rs.uniform(2.0, 4.0, C)
+    vs[:, 1:] = vs[:, :1] + rs.uniform(0.1, 1.0, (C, 1))
+    vp = np.float32(1.73) * vs
+    rho = np.float32(0.32) * vp + np.float32(0.77)
+    single = tuple(torch.tensor(x, device=dev) for x in (h, vp, vs, rho))
+    ragged = tuple(x.T.contiguous() for x in _ragged_planes(dev, C)[0])
+    return single, ragged
+
+
+@pytest.mark.parametrize('iwave', [2, 1], ids=['K4', 'K5'])
+def test_secular_cold_search_grids_bitwise(dev, iwave):
+    # the three grids of the cold search on a 2,048-chain chunk, each
+    # broadcast as the drivers pass it: sign 0 at cm, (C, 1) against
+    # (C, R) frequencies; a counting block of 64 velocities above cm,
+    # (C, 1, 64); a refinement of 17 points per period, (C, R, 17)
+    C, R = 2048, 21
+    omega = swd.angular_frequencies(np.linspace(1, 41, R), dev).expand(C,
+                                                                       R)
+    fracs = torch.arange(0, 17, dtype=torch.float32, device=dev) / 16
+    for layers in _cold_models(dev, C):
+        cm, _ = swd.lower_bound(layers[1], layers[2], dim=-1)
+        cm = cm[:, None]
+        block = cm[..., None] + torch.arange(
+            1, swd.KBLOCK + 1, device=dev) * swd.DDC
+        lo = cm + swd.DDC * torch.arange(R, device=dev)
+        pts = lo[..., None] + swd.DDC * fracs
+        for c, om in ((cm, omega), (block, omega[..., None]),
+                      (pts, omega[..., None])):
+            _secular_bitwise(dev, layers, c, om, iwave)
+
+
+@pytest.mark.parametrize('kernel', ['K4', 'K5'])
+def test_secular_undersized_shared_memory_is_refused(dev, monkeypatch,
+                                                     kernel):
+    # a geometry one float short of the tile's layout: the entry point
+    # refuses it (cudaErrorInvalidConfiguration, 9) before launching
+    real = swd.geometry
+
+    def short(*a):
+        geo = real(*a)
+        return geo._replace(smem=geo.smem - 4)
+
+    monkeypatch.setattr(swd, 'geometry', short)
+    layers = tuple(x.T.contiguous() for x in _ragged_planes(dev, 37)[0])
+    c = torch.full((37, 21, 17), 3.0, device=dev)
+    omega = swd.angular_frequencies(np.linspace(1.0, 60.0, 21), dev)
+    counter = swd.secular4 if kernel == 'K4' else swd.secular1
+    before = counter.launches
+    with pytest.raises(RuntimeError, match='CUDA error 9 '):
+        swd.secular_at(c, omega[None, :, None], *layers,
+                       2 if kernel == 'K4' else 1)
+    assert counter.launches == before

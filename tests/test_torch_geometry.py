@@ -1,8 +1,9 @@
 """Launch geometry of the kernels that stage whole chains in shared
 memory (K2 ``ops/walk.py``, K3/K3r ``ops/resp.py``, K1/K6
-``ops/prep.py``), checked on the CPU: every (chain, lane) is served
-exactly once at ragged shapes, every K1/K6 output element is stored
-exactly once, the shared bytes fit the card, and a launch above 48 KB
+``ops/prep.py``, K4/K5 ``ops/swd.py``), checked on the CPU: every
+(chain, lane) is served exactly once at ragged shapes, every K1/K6 and
+K4/K5 output element is stored exactly once, no K4/K5 warp straddles
+two chains, the shared bytes fit the card, and a launch above 48 KB
 opts in to more; K1's cached launch constants equal freshly built ones.
 """
 
@@ -12,7 +13,7 @@ import re
 import numpy as np
 import pytest
 
-from bayhunter_tpu_torch.ops import _ext, lanes, prep, resp, rf, walk
+from bayhunter_tpu_torch.ops import _ext, lanes, prep, resp, rf, swd, walk
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'bayhunter_tpu_torch', 'csrc')
@@ -235,3 +236,74 @@ def test_cached_launch_constants_equal_fresh_ones(nl):
         assert list(starts[3::2]) == list(got.specs.pack)[:len(specs)]
     assert prep.cached_outputs(nl, (p,)) is first
     assert bytes(first.specs) == bytes(prep.outputs(nl, (p,)).specs)
+
+
+# K4/K5's grids: the cold search's sign-0 (K = 1), refine (17) and
+# counting-block (64) shapes at 21 periods, and a wide one
+SECULAR_SHAPES = [(21, 1), (21, 17), (21, 64), (60, 64)]
+
+
+@pytest.mark.parametrize('nl', [2, 21, 64])
+@pytest.mark.parametrize('R,K', SECULAR_SHAPES)
+@pytest.mark.parametrize('C', [1, 7, 2051])
+def test_secular_stores_once_in_whole_chain_warps(C, R, K, nl):
+    E = R * K
+    for iwave in (2, 1):
+        geo = swd.geometry(C, R, K, nl, iwave)
+        assert geo.threads % lanes.WARP == 0
+        assert geo.threads <= swd.MAX_THREADS
+        assert (geo.blocks - 1) * geo.tile < C <= geo.blocks * geo.tile
+        assert geo.smem == 4 * geo.tile * (swd.chain_floats(nl, R, iwave)
+                                           + 1)
+        assert geo.smem <= lanes.SMEM_MAX
+        m = swd.store_map(geo, C, R, K)
+        assert m.shape[0] == geo.blocks and m.shape[2] == geo.threads
+        assert np.array_equal(np.bincount(m[m >= 0], minlength=C * E),
+                              np.ones(C * E, np.int64))
+        # every warp's stores lie in one chain, of its block's tile
+        w = m.reshape(geo.blocks, -1, lanes.WARP)
+        chain = np.where(w >= 0, w // E, -1)
+        first = np.where(w >= 0, chain, C).min(axis=2)
+        last = chain.max(axis=2)
+        busy = last >= 0
+        assert np.array_equal(first[busy], last[busy])
+        block = np.broadcast_to(np.arange(geo.blocks)[:, None], busy.shape)
+        assert np.array_equal(last[busy] // geo.tile, block[busy])
+
+
+def test_secular_tiles_fill_the_block_at_the_cold_search_shapes():
+    # a 2,048-chain cold chunk and 10,240 chains at 21 periods: the
+    # tile's warp-slots are whole rounds of 8 warps
+    for C in (2048, 10240):
+        for K in (1, 17, 64):
+            for iwave in (2, 1):
+                geo = swd.geometry(C, 21, K, NL, iwave)
+                W = -(-21 * K // lanes.WARP)
+                assert geo.threads == swd.MAX_THREADS
+                assert geo.tile * W % (geo.threads // lanes.WARP) == 0
+                assert geo.smem <= lanes.SMEM_DEFAULT
+
+
+def test_secular_shared_bytes_agree_with_the_kernel_and_opt_in():
+    with open(os.path.join(CSRC, 'secular.cu')) as f:
+        src = f.read()
+    assert re.search(r'constexpr int SECULAR_MAX_THREADS = (\d+);',
+                     src).group(1) == str(swd.MAX_THREADS)
+    for fn, iwave in (('rayleigh_floats', 2), ('love_floats', 1)):
+        body = re.search(r'int %s\(int nl, int R\) \{ return (.*?); \}'
+                         % fn, src).group(1)
+        for nl in (2, 21, 64):
+            for R in (1, 21, 60):
+                assert eval(body, {'nl': nl, 'R': R}) == swd.chain_floats(
+                    nl, R, iwave)
+    # the entry points refuse less than the tile's floats and tops
+    assert 'smem < 4 * (long)tile * (floats + 1)' in src
+    # one guarded opt-in serves K4's and K5's launches
+    guarded = re.findall(r'if \(smem > 48 \* 1024\) \{\s*cudaError_t e = '
+                         r'cudaFuncSetAttribute\(', src)
+    assert len(guarded) == 1 == src.count('cudaFuncSetAttribute')
+    # four chains of 60 periods at 64 slots need more than 48 KB
+    assert swd.geometry(2051, 60, 1, 64, 2).smem > lanes.SMEM_DEFAULT
+    assert swd.geometry(2051, 60, 1, 64, 2).smem <= lanes.SMEM_MAX
+    with pytest.raises(ValueError):
+        swd.geometry(10, 200, 64, 200, 2)

@@ -8,6 +8,7 @@ row-major arm (the Pallas response kernel in interpret mode), float32:
     tests/test_pallas.py:1050);
   * a Q contrast across a zero-thickness slot raises the skip depth;
   * the tutorial model against the S-RF golden (f32, 5e-4);
+  * ``rf.synrf``'s (fz, fr, rf) against the JAX ``synrf`` (f32, 5e-4);
 
 and the K3r twin in float64 against the independent native reflectivity
 (``bayhunter_tpu.native``) on the 80-model sweep of
@@ -150,9 +151,34 @@ def test_tutorial_golden_f32(wave):
     nsv, poisson = _rotation(vp[None], vs[None])
     y = rf.synrf(h, vp, vs, rho, np.full(nl, 500.0), np.full(nl, 225.0),
                  P_SDEG, GAUSS, NSAMP, FSAMP, TSHIFT, nsv, poisson,
-                 wave_type=wave, device='cpu').numpy()
+                 wave_type=wave, device='cpu')[2].numpy()
     np.testing.assert_allclose(y[:obs.shape[0]], obs[:, 1], rtol=0,
                                atol=5e-4)
+
+
+@WAVES
+def test_synrf_traces_match_jax(wave):
+    """``synrf``'s (fz, fr, rf) against the JAX package's ``synrf`` on
+    one seeded 8-layer model with per-layer Q, float32, within the f32
+    bound of tests/test_rf.py:50-54 (5e-4) and, since the Z and R traces
+    peak below 0.1, within 1e-3 of each trace's peak (the port sums the
+    Gauss-cut lanes, the JAX package all of them)."""
+    H, VP, VS, RHO = _mixed(seed=13)
+    qp, qs = q_model(np.random.RandomState(9), (C, NL))
+    model = tuple(x[1] for x in (H, VP, VS, RHO, qp, qs))
+    nsv, poisson = (float(x[0]) for x in _rotation(VP[1:2], VS[1:2]))
+    got = rf.synrf(*model, P_SDEG, GAUSS, NSAMP, FSAMP, TSHIFT, nsv,
+                   poisson, wave_type=wave, device='cpu')
+    want = jrf.synrf(*(jnp.asarray(x) for x in model), P_SDEG, GAUSS,
+                     NSAMP, FSAMP, TSHIFT, nsv, poisson, wave_type=wave)
+    assert len(got) == len(want) == 3
+    for a, b in zip(got, want):
+        b = np.asarray(b)
+        assert a.shape == b.shape == (NSAMP,)
+        peak = np.abs(b).max()
+        assert peak > 0.02
+        np.testing.assert_allclose(a.numpy(), b, rtol=0, atol=5e-4)
+        assert np.abs(a.numpy() - b).max() <= 1e-3 * peak
 
 
 @WAVES

@@ -8,18 +8,20 @@ PARENT_DIR holds another tree of the repository (for example the parent
 commit, unpacked with ``git archive``); the other tree is this one.
 Each run is a whole ``chip_smoke.py`` in its tree's root, then this
 tree's ``tools/kernel_variants.py --tree`` on that tree's port (K2 by
-wave and move class, K3 and K3r case by case, K1 and K6 by events and
-by the profiler), in the order parent, change, change, parent, change,
+wave and move class, K3 and K3r case by case, K1, K6 and, where the
+tree's K4/K5 take phase velocities, K4/K5 by events and by the
+profiler), in the order parent, change, change, parent, change,
 parent, parent, change, ... (``--pairs`` runs of each), its log in
 ``DIR/pair_N_TREE.log`` (``--out``, default ``results/``).  Prints, and
 writes to ``DIR/chip_pair.json``, for each tree: each kernel's and
 each case's event time (median, range) beside the kernel's bound, the
-cases' profiler device times (K1, K6), the registers ptxas gave each
-K1/K2/K3/K6 kernel, each main path's proposals/s, cold-init time and
-reject percentages, whether the main paths' accepted and proposed
-counts agree between the trees run for run, and the profile's kernel
-device times and device events per iteration.  Exits non-zero when a
-run failed.
+profiler device times (K1, K4, K5, K6), the registers ptxas gave each
+kernel, each main path's proposals/s, cold-init time and reject
+percentages, whether the main paths' accepted and proposed counts agree
+between the trees run for run, the profile's kernel device times and
+device events per iteration, and each cold init's wall time beside its
+K3-K6 device time (trees whose ``chip_smoke.py`` logs it).  Exits
+non-zero when a run failed.
 """
 
 import argparse
@@ -56,6 +58,8 @@ def parse(log):
             run['paths'][rec['config']] = rec
         elif line.startswith('profile: '):
             run['profile'] = json.loads(line[len('profile: '):])
+        elif line.startswith('cold init profile: '):
+            run['cold_init'] = json.loads(line[len('cold init profile: '):])
         elif line.startswith('path A, '):
             run['path_a'] = json.loads(line.split(': ', 1)[1].rsplit(
                 ', launches', 1)[0])
@@ -63,7 +67,7 @@ def parse(log):
             entry = line.split("'")[1]
         elif 'registers' in line and entry is not None:
             if any(k in entry for k in ('prep_kernel', 'walk_kernel',
-                                        'resp_kernel')):
+                                        'resp_kernel', 'secular_kernel')):
                 run['regs'][entry] = line.split('ptxas:')[-1].strip()
             entry = None
     return run
@@ -89,6 +93,9 @@ def summary(runs):
             # chunk), their wrapper_ms
             events_ms=spread([rec.get('wrapper_ms', rec['ms'])
                               for rec in recs]),
+            # the profiler's device time beside an event-timed kernel
+            # (K4/K5 at 10,240 chains)
+            device_ms=spread([rec.get('device_ms') for rec in recs]),
             bound_ms=k['bound_ms'], bound_by=k['bound_by'],
             plain_ms=spread([r['kernels'][name]['plain_ms'] for r in runs]),
             launches=k['launches'], max_abs_err=max(
@@ -121,6 +128,15 @@ def summary(runs):
             k: spread([p['kernel_device_ms'][k] / p['profiled_iters']
                        for p in prof])
             for k in prof[0]['kernel_device_ms']})
+    if all('cold_init' in r for r in runs):
+        out['cold_init'] = {cfg: dict(
+            wall_ms=spread([r['cold_init'][cfg]['wall_ms'] for r in runs]),
+            device_busy_ms=spread([r['cold_init'][cfg]['device_busy_ms']
+                                   for r in runs]),
+            kernel_device_ms={k: spread([
+                r['cold_init'][cfg]['kernel_device_ms'][k] for r in runs])
+                for k in runs[0]['cold_init'][cfg]['kernel_device_ms']})
+            for cfg in runs[0]['cold_init']}
     if all('path_a' in r for r in runs):
         out['path_a_s_per_call'] = {
             w: spread([float(np.median(r['path_a'][w]['seconds_per_call'][1:]))

@@ -1,32 +1,37 @@
-"""Time K1, K2, K3, K3r and K6 case by case on one card, and what
-bit-for-bit parity with their twins costs them.
+"""Time K1-K6 case by case on one card, and what bit-for-bit parity
+with their twins costs them.
 
-    python3 tools/kernel_variants.py [--fmad] [--tree DIR] [--rounds N]
-                                     [--out DIR]
+    python3 tools/kernel_variants.py [--relax NAME ...] [--tree DIR]
+                                     [--rounds N] [--out DIR]
 
 The cases are ``chip_smoke.py``'s inputs: 10,240 grown models, K2 from
 their cold roots (both waves; the vs, z and dim settings one case
 each), K3 at 99 lanes on K1's P and S operands and at 257 on K6's, K3r
 on path A's models and Q, K1 with no, one and two RF targets (no
-target: the model part alone) and K6 at 10,240 chains and on a cold
-chunk.  Each case is held against its
+target: the model part alone), K6 at 10,240 chains and on a cold
+chunk, and K4/K5 on the first counting block of the grown models and
+of a cold chunk (trees whose K4/K5 take phase velocities).  Each case
+is held against its
 plain twin (bitwise equality, max |error| where both are finite, K2's
 found-flag flips) and timed with CUDA events over chip_smoke.py's
-``KERNEL_REPS`` launches, ``--rounds`` times; K1 and K6, whose wrapper
-takes longer on the host than the kernel on the card, also by the
-profiler's device time (median of the launches).  Prints one JSON line
-per build: its ptxas lines (registers, spills) and each case's median
-and times.
+``KERNEL_REPS`` launches, ``--rounds`` times; K1, K4, K5 and K6 also by
+the profiler's device time (median of the launches).  Prints one JSON
+line per build: its ptxas lines (registers, spills) and each case's
+median and times.
 
 ``--tree DIR`` times the port of another tree of the repository (such
 as the parent commit, unpacked with ``git archive``) instead of this
 one's; ``tools/chip_pair.py`` runs it for each tree in its turns.
 
-``--fmad`` also builds this tree's kernels with ``--fmad=true`` in place
-of ``--fmad=false`` (a library of its own beside the shipped one, never
-loaded by the port) and times the two builds in turns within each
-round: what the twins' rounding costs.  It writes both builds' records
-to ``DIR/kernel_variants.json`` (``--out``, default ``results/``).
+``--relax NAME`` (repeatable) also builds this tree's kernels with the
+nvcc flags of ``RELAXED[NAME]`` (a library of its own beside the
+shipped one, never loaded by the port; its results differ from the
+twins') and times the builds in turns within each round: what the
+twins' rounding costs — ``fmad`` contracts a*b+c into fused
+multiply-adds, ``div`` and ``sqrt`` take the approximate division and
+square root, ``fast-math`` all of these with the fast sin, cos and exp.
+It writes every build's records to ``DIR/kernel_variants.json``
+(``--out``, default ``results/``).
 """
 
 import argparse
@@ -42,10 +47,16 @@ sys.path.insert(0, HERE)
 
 import chip_smoke as cs  # noqa: E402
 
+# nvcc flags in place of the shipped --fmad=false, per relaxed build
+RELAXED = {'fmad': ['--fmad=true'],
+           'div': ['--fmad=false', '-prec-div=false'],
+           'sqrt': ['--fmad=false', '-prec-sqrt=false'],
+           'fast-math': ['--use_fast_math']}
+
 
 def ptxas_lines(library):
-    """{kernel entry: 'N registers, ...'} of K1, K2, K3, K3r and K6,
-    from the nvcc output saved beside ``library`` when it was built."""
+    """{kernel entry: 'N registers, ...'} of K1-K6, from the nvcc output
+    saved beside ``library`` when it was built."""
     with open(library + '.log') as f:
         log = f.read()
     out, entry = {}, None
@@ -116,7 +127,18 @@ def inputs(torch, dev):
         cases['K1_%drf' % n_rf] = (
             lambda a=a: prep.model_operands(*a),
             lambda a=a: prep.model_operands_plain(*a), cs.KERNEL_NAMES['K1'])
-    cold = tuple(x.T.contiguous() for x in cs.cold_chunk(torch, dev))
+    cold_rows = cs.cold_chunk(torch, dev)
+    cold = tuple(x.T.contiguous() for x in cold_rows)
+    if hasattr(swd, 'secular_at'):
+        for kernel, iwave, twin in (('K4', 2, swd.dltar4),
+                                    ('K5', 1, swd.dltar1)):
+            for tag, lay in (('count', layers), ('cold', cold_rows)):
+                c, om = cs.secular_grids(torch, lay, spec.omegas)['count']
+                a = lay if iwave == 2 else (lay[0], lay[2], lay[3])
+                cases['%s_%s' % (kernel, tag)] = (
+                    cs.secular_call(lay, c, om, iwave),
+                    lambda a=a, c=c, om=om, t=twin: t(om / c, om, *a),
+                    cs.KERNEL_NAMES[kernel])
     for tag, pl in (('K6_p', planes), ('K6_cold', cold)):
         a = pl + (pspec.p_skm,)
         cases[tag] = (lambda a=a: prep.rf_operands(*a),
@@ -151,14 +173,15 @@ def compare(torch, got, want):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument('--fmad', action='store_true')
+    ap.add_argument('--relax', action='append', default=[],
+                    choices=sorted(RELAXED))
     ap.add_argument('--tree', help='time the port of this tree instead')
     ap.add_argument('--rounds', type=int, default=5)
     ap.add_argument('--out', default='results')
     opts = ap.parse_args()
     if opts.tree:
-        if opts.fmad:
-            raise SystemExit('--fmad builds this tree only')
+        if opts.relax:
+            raise SystemExit('--relax builds this tree only')
         sys.path.insert(0, os.path.abspath(opts.tree))
 
     import torch
@@ -171,11 +194,11 @@ def main():
                          text=True).stdout.strip()
     print(smi, flush=True)
     libs = {'shipped': (_ext.load(), ptxas_lines(_ext.library_path()))}
-    if opts.fmad:
+    for name in opts.relax:
         flags = [f for f in _ext.NVCC_FLAGS if f != '--fmad=false'] \
-            + ['--fmad=true']
-        libs['fmad'] = (_ext._build_and_load(flags),
-                        ptxas_lines(_ext.library_path(flags)))
+            + RELAXED[name]
+        libs[name] = (_ext._build_and_load(flags),
+                      ptxas_lines(_ext.library_path(flags)))
     cases = inputs(torch, dev)
     twins = {k: twin() for k, (_, twin, _) in cases.items()}
     times = {name: {k: [] for k in cases} for name in libs}
@@ -205,7 +228,7 @@ def main():
         record['builds'][name] = rec
         print(json.dumps(rec), flush=True)
     _ext._Build.lib = libs['shipped'][0]
-    if opts.fmad:
+    if opts.relax:
         os.makedirs(opts.out, exist_ok=True)
         with open(os.path.join(opts.out, 'kernel_variants.json'),
                   'w') as f:
