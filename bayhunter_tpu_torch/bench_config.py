@@ -8,11 +8,20 @@
     dispersion (``st3_ldispph.dat``) as a third target, the joint the
     JAX package tests in ``tests/test_pallas.py:517-575``;
   * ``build_prf_srf`` — ``tutorial_prf_srf``: the main path with an S
-    receiver function (``st3_srf.dat``) as a third target.
+    receiver function (``st3_srf.dat``) as a third target;
+  * ``build_six`` — ``tutorial_six``: every target kind of the
+    reference in one joint, the six fixtures (Rayleigh and Love phase
+    and group velocity, ``st3_rdispph.dat``, ``st3_rdispgr.dat``,
+    ``st3_ldispph.dat``, ``st3_ldispgr.dat``, P- and S-RF), the joint
+    of the JAX package's ``test_all_six_targets_joint``
+    (``tests/test_sampler.py:166-198``);
+  * ``build_six_sph`` — ``tutorial_six_sph``: the same with the four
+    dispersion targets on a spherical earth (``flsph`` 1).
 
-Flat earth, fundamental mode, uncorrelated SWD noise and the
-whitened-Gaussian RF law in all three; the RF targets share the
-``rfnoise_*`` priors, as in the JAX package."""
+Fundamental mode, uncorrelated SWD noise and the whitened-Gaussian RF
+law in all; flat earth but in ``tutorial_six_sph``; the dispersion
+targets share the ``swdnoise_*`` priors and the RF targets the
+``rfnoise_*`` ones, as in the JAX package."""
 
 import os
 
@@ -32,11 +41,18 @@ PRIORS = {'vs': (2.0, 5.0), 'z': (0.0, 60.0), 'layers': (1, 20),
 
 # each configuration's targets, by the name of their observed data
 # (tests/fixtures/st3_<ref>.dat)
+SIX = ('rdispph', 'rdispgr', 'ldispph', 'ldispgr', 'prf', 'srf')
 CONFIGS = {'tutorial': ('rdispph', 'prf'),
            'tutorial_rl_prf': ('rdispph', 'ldispph', 'prf'),
-           'tutorial_prf_srf': ('rdispph', 'prf', 'srf')}
+           'tutorial_prf_srf': ('rdispph', 'prf', 'srf'),
+           'tutorial_six': SIX,
+           'tutorial_six_sph': SIX}
+# the configurations whose dispersion targets take a spherical earth
+SPHERICAL = ('tutorial_six_sph',)
 TARGETS = {'rdispph': Targets.RayleighDispersionPhase,
+           'rdispgr': Targets.RayleighDispersionGroup,
            'ldispph': Targets.LoveDispersionPhase,
+           'ldispgr': Targets.LoveDispersionGroup,
            'prf': Targets.PReceiverFunction,
            'srf': Targets.SReceiverFunction}
 
@@ -48,19 +64,23 @@ def initparams(iters):
             'iter_burnin': int(iters), 'iter_main': int(iters)}
 
 
-def joint_target(refs=CONFIGS['tutorial'], fixtures=FIXTURES):
-    """The joint target of the observed data ``refs``."""
+def joint_target(refs=CONFIGS['tutorial'], fixtures=FIXTURES, flsph=0):
+    """The joint target of the observed data ``refs``, its dispersion
+    targets on a flat (``flsph`` 0) or spherical (1) earth."""
     targets = []
     for ref in refs:
         obs = np.loadtxt(os.path.join(fixtures, 'st3_%s.dat' % ref))
-        targets.append(TARGETS[ref](obs[:, 0], obs[:, 1]))
+        target = TARGETS[ref](obs[:, 0], obs[:, 1])
+        if target.noiseref == 'swd':
+            target.moddata.plugin.set_modelparams(flsph=flsph)
+        targets.append(target)
     return Targets.JointTarget(targets=targets)
 
 
 def build_config(name, device, iters=2000, nl=21):
     """(sampler, evaluator) of the configuration ``name`` of CONFIGS."""
     ip = initparams(iters)
-    joint = joint_target(CONFIGS[name])
+    joint = joint_target(CONFIGS[name], flsph=int(name in SPHERICAL))
     cfg = make_config(PRIORS, ip, [t.noiseref for t in joint.targets],
                       nl=nl)
     ev = build_evaluator(joint, PRIORS, ip, nl, device)
@@ -82,3 +102,14 @@ def build_prf_srf(device, iters=2000, nl=21):
     """(sampler, evaluator) of ``tutorial_prf_srf``: Rayleigh phase,
     P-RF and S-RF."""
     return build_config('tutorial_prf_srf', device, iters, nl)
+
+
+def build_six(device, iters=2000, nl=21):
+    """(sampler, evaluator) of ``tutorial_six``: the six target kinds."""
+    return build_config('tutorial_six', device, iters, nl)
+
+
+def build_six_sph(device, iters=2000, nl=21):
+    """(sampler, evaluator) of ``tutorial_six_sph``: the six target kinds,
+    the dispersion targets on a spherical earth."""
+    return build_config('tutorial_six_sph', device, iters, nl)

@@ -69,6 +69,20 @@
 //     running depths, which the validity scan writes only after the
 //     Voronoi pass; prep_kernel<false> keeps the no-mantle instruction
 //     stream as it was.
+//   * the spherical earth (prep_sph_kernel<MANTLE>, launched when
+//     SwdSets asks for a spherical set; pallas_prep._swd_rows
+//     iflsph == 1, :264-285): after the validity scan, one item per
+//     (slot, chain) flattens the slot from the chain's running depths
+//     (the halfspace slot takes a fictitious 1 km for its bottom):
+//     d = R ln(R/r1) - R ln(R/r0), a and b times 2R/(r0 + r1), rho
+//     times exp(ex ln(2R/(r0 + r1))) with R = 6370 km; it writes the
+//     spherical set [d; a; b; rho_R] (ex -2.275) and, when a spherical
+//     Love target asks for it, the Love density plane (ex -5), and
+//     stages d, a, b in three more shared planes; then one thread per
+//     chain scans them for the set's cm, betmx and top beside the RF
+//     flattening's slot items.  The flat set is written only when a
+//     flat target asks for it.  prep_kernel<MANTLE> keeps the flat
+//     instruction stream and output rows as they were.
 // Left for later work: fusing the operand packs into their consumers
 // so that the 640-row coefficient table never reaches device memory.
 #include <cuda_runtime.h>
@@ -101,6 +115,14 @@ struct RfSpecs {
     int pack[RF_MAX];
 };
 
+// K1's dispersion sets in the spherical kernels: the flat set [d; a;
+// b; rho] + cm, bx, top at row 0 when ``flat``, the spherical set at
+// ``sph_row`` when ``sph``, the spherical Love density plane at
+// ``love_row`` when ``love``; ops/_ext.py SwdSets mirrors it
+struct SwdSets {
+    int flat, sph, love, sph_row, love_row;
+};
+
 namespace {
 
 __device__ __forceinline__ float gtsolh(float a, float b) {
@@ -121,6 +143,58 @@ __device__ __forceinline__ float gtsolh(float a, float b) {
         c = c - fr / frp;
     }
     return c;
+}
+
+// The SWD scalars of chain c from its layer planes d, a, b (slot i at
+// i * tile + c): cm = 0.95 0.90 gtsolh at the slowest layer (its
+// velocity if fluid), betmx and the deepest slot with d > 0
+// (pallas_prep._swd_rows), stored at rows 0, 1, 2 of ``out`` (row
+// stride C).
+__device__ __forceinline__ void swd_scalars(int nl, int c, int tile, int C,
+                                            const float *d, const float *a,
+                                            const float *b, float *out) {
+    int jmn = 0;
+    float betmn = 0.0f, bx = 0.0f;
+    int top = -1;
+    for (int i = 0; i < nl; ++i) {
+        int s = i * tile + c;
+        float bi = b[s];
+        float cand = bi > 0.01f ? bi : a[s];
+        if (i == 0 || cand < betmn) {
+            betmn = cand;
+            jmn = i;
+        }
+        bx = i == 0 ? bi : fmaxf(bx, bi);
+        if (d[s] > 0.0f) top = i;
+    }
+    int s = jmn * tile + c;
+    float cc1 = b[s] > 0.01f ? gtsolh(a[s], b[s]) : betmn;
+    out[c] = (float)(0.95 * 0.90) * cc1;
+    out[(size_t)C + c] = bx;
+    out[(size_t)2 * C + c] = (float)top;
+}
+
+// Spherical-earth flattening of one slot for the dispersion solver
+// (pallas_prep._swd_rows iflsph == 1; surfdisp96.f:486-553, R = 6370
+// km): zt and zb the slot's running depths at its top and bottom.
+// rho_r takes the Rayleigh exponent -2.275, rho_l the Love -5, each as
+// exp(ex ln(tmp)), the TPU kernel's form.
+__device__ __forceinline__ void sphere_slot(float zt, float zb, float vp,
+                                            float vs, float rho, float &d,
+                                            float &a, float &b, float &rho_r,
+                                            float &rho_l) {
+    const float R = 6370.0f;
+    float r0 = R - zt;
+    float r1 = R - zb;
+    float z0 = R * logf(R / r0);
+    float z1 = R * logf(R / r1);
+    d = z1 - z0;
+    float tmp = (R + R) / (r0 + r1);
+    a = vp * tmp;
+    b = vs * tmp;
+    float lt = logf(tmp);
+    rho_r = rho * expf(-2.275f * lt);
+    rho_l = rho * expf(-5.0f * lt);
 }
 
 // A tile's layer planes in shared memory, [plane][layer][chain]: slot
@@ -305,13 +379,15 @@ __device__ __forceinline__ bool validity(int nl, int c, int n,
 }
 
 // K1: the tile's nuclei -> validity, walker operands and one RF operand
-// set per RF target; MANTLE: with the mantle prior.
-template <bool MANTLE>
-__global__ void __launch_bounds__(PREP_MAX_THREADS)
-prep_kernel(const float *__restrict__ vs_t, const float *__restrict__ z_t,
-            const int *__restrict__ n_in, const float *__restrict__ vpvs_in,
-            int nl, int C, PriorCfg cfg, RfSpecs rf, PackLayout lay, int tile,
-            bool *__restrict__ valid_out, float *__restrict__ out) {
+// set per RF target; MANTLE: with the mantle prior; SPH: with the
+// spherical set (SwdSets).
+template <bool MANTLE, bool SPH>
+__device__ __forceinline__ void model_body(
+    const float *__restrict__ vs_t, const float *__restrict__ z_t,
+    const int *__restrict__ n_in, const float *__restrict__ vpvs_in, int nl,
+    int C, const PriorCfg &cfg, const RfSpecs &rf, const SwdSets &sw,
+    const PackLayout &lay, int tile, bool *__restrict__ valid_out,
+    float *__restrict__ out) {
     extern __shared__ float4 smem4[];
     float *sm = reinterpret_cast<float *>(smem4);
     const int T = blockDim.x;
@@ -326,6 +402,11 @@ prep_kernel(const float *__restrict__ vs_t, const float *__restrict__ z_t,
     float *s_vpvs = s_zt + P + tile;
     int *s_n = reinterpret_cast<int *>(s_vpvs + tile);
     float *props = out + c_base;
+    // the spherical arm's flattened d, a, b (SPH only)
+    float *s_sd = reinterpret_cast<float *>(s_n + tile);
+    float *s_sa = s_sd + P;
+    float *s_sb = s_sa + P;
+    const bool flat = !SPH || sw.flat;
 
     for (int k = tid; k < nl * tc; k += T) {
         int i = k / tc, c = k - i * tc;
@@ -384,46 +465,69 @@ prep_kernel(const float *__restrict__ vs_t, const float *__restrict__ z_t,
         f.vp[s] = vp;
         f.vs[s] = vsl;
         f.rho[s] = rho;
-        props[(size_t)i * C + c] = h;
-        props[(size_t)(nl + i) * C + c] = vp;
-        props[(size_t)(2 * nl + i) * C + c] = vsl;
-        props[(size_t)(3 * nl + i) * C + c] = rho;
+        if (flat) {
+            props[(size_t)i * C + c] = h;
+            props[(size_t)(nl + i) * C + c] = vp;
+            props[(size_t)(2 * nl + i) * C + c] = vsl;
+            props[(size_t)(3 * nl + i) * C + c] = rho;
+        }
     }
     __syncthreads();
 
     // the two per-chain scans, side by side: validity with the running
-    // depths (pallas_prep._valid_rows), and the SWD scalars
+    // depths (pallas_prep._valid_rows), and the flat set's SWD scalars
     // (pallas_prep._swd_rows)
-    for (int k = tid; k < 2 * tc; k += T) {
+    for (int k = tid; k < (flat ? 2 : 1) * tc; k += T) {
         if (k < tc) {
             valid_out[c_base + k] = validity(nl, k, s_n[k], cfg, s_vs, f,
                                              s_zt);
             continue;
         }
-        const int c = k - tc;
-        int jmn = 0;
-        float betmn = 0.0f, bx = 0.0f;
-        int top = -1;
-        for (int i = 0; i < nl; ++i) {
-            int s = i * tile + c;
-            float vsl = f.vs[s];
-            float cand = vsl > 0.01f ? vsl : f.vp[s];
-            if (i == 0 || cand < betmn) {
-                betmn = cand;
-                jmn = i;
-            }
-            bx = i == 0 ? vsl : fmaxf(bx, vsl);
-            if (f.h[s] > 0.0f) top = i;
-        }
-        int s = jmn * tile + c;
-        float cc1 = f.vs[s] > 0.01f ? gtsolh(f.vp[s], f.vs[s]) : betmn;
-        props[(size_t)(4 * nl) * C + c] = (float)(0.95 * 0.90) * cc1;
-        props[(size_t)(4 * nl + 1) * C + c] = bx;
-        props[(size_t)(4 * nl + 2) * C + c] = (float)top;
+        swd_scalars(nl, k - tc, tile, C, f.h, f.vp, f.vs,
+                    props + (size_t)(4 * nl) * C);
     }
     __syncthreads();
 
-    flatten_tile(nl, tc, f, s_zt);
+    if constexpr (SPH) {
+        // the spherical set, one item per slot, from the running depths
+        // (the halfspace slot's bottom 1 km below its top)
+        float *sph = out + (size_t)sw.sph_row * C + c_base;
+        float *love = out + (size_t)sw.love_row * C + c_base;
+        for (int k = tid; k < nl * tc; k += T) {
+            int i = k / tc, c = k - i * tc;
+            int s = i * tile + c;
+            float zt = s_zt[s];
+            float zb = i < nl - 1 ? s_zt[s + tile] : zt + 1.0f;
+            float d, a, b, rho_r, rho_l;
+            sphere_slot(zt, zb, f.vp[s], f.vs[s], f.rho[s], d, a, b, rho_r,
+                        rho_l);
+            if (i == nl - 1) d = 0.0f;
+            s_sd[s] = d;
+            s_sa[s] = a;
+            s_sb[s] = b;
+            sph[(size_t)i * C + c] = d;
+            sph[(size_t)(nl + i) * C + c] = a;
+            sph[(size_t)(2 * nl + i) * C + c] = b;
+            sph[(size_t)(3 * nl + i) * C + c] = rho_r;
+            if (sw.love) love[(size_t)i * C + c] = rho_l;
+        }
+        __syncthreads();
+        // the spherical set's SWD scalars, one thread per chain, beside
+        // the RF flattening's slot items
+        for (int k = tid; k < tc + nl * tc; k += T) {
+            if (k < tc) {
+                swd_scalars(nl, k, tile, C, s_sd, s_sa, s_sb,
+                            sph + (size_t)(4 * nl) * C);
+                continue;
+            }
+            int i = (k - tc) / tc, c = k - tc - i * tc;
+            int s = i * tile + c;
+            flatten_slot(s_zt[s], s_zt[s + tile], f.h[s], f.vp[s], f.vs[s],
+                         f.rho[s]);
+        }
+    } else {
+        flatten_tile(nl, tc, f, s_zt);
+    }
     __syncthreads();
 
     const int items = rf_items(nl, tc, lay);
@@ -433,6 +537,32 @@ prep_kernel(const float *__restrict__ vs_t, const float *__restrict__ z_t,
                 lay, f, out + (size_t)pick(rf.coefs, s) * C + c_base,
                 out + (size_t)pick(rf.pack, s) * C + c_base);
     }
+}
+
+// K1 with flat dispersion targets only (its output rows as ops/prep.py
+// outputs() lays them out without SwdSets).
+template <bool MANTLE>
+__global__ void __launch_bounds__(PREP_MAX_THREADS)
+prep_kernel(const float *__restrict__ vs_t, const float *__restrict__ z_t,
+            const int *__restrict__ n_in, const float *__restrict__ vpvs_in,
+            int nl, int C, PriorCfg cfg, RfSpecs rf, SwdSets sw,
+            PackLayout lay, int tile, bool *__restrict__ valid_out,
+            float *__restrict__ out) {
+    model_body<MANTLE, false>(vs_t, z_t, n_in, vpvs_in, nl, C, cfg, rf, sw,
+                              lay, tile, valid_out, out);
+}
+
+// K1 with a spherical set (and the flat set when a flat target asks).
+template <bool MANTLE>
+__global__ void __launch_bounds__(PREP_MAX_THREADS)
+prep_sph_kernel(const float *__restrict__ vs_t,
+                const float *__restrict__ z_t, const int *__restrict__ n_in,
+                const float *__restrict__ vpvs_in, int nl, int C,
+                PriorCfg cfg, RfSpecs rf, SwdSets sw, PackLayout lay,
+                int tile, bool *__restrict__ valid_out,
+                float *__restrict__ out) {
+    model_body<MANTLE, true>(vs_t, z_t, n_in, vpvs_in, nl, C, cfg, rf, sw,
+                             lay, tile, valid_out, out);
 }
 
 // K6: the RF operands alone, from (NL, C) layer planes.
@@ -474,8 +604,9 @@ rf_prep_kernel(const float *__restrict__ h_in,
 }
 
 // Shared floats per chain of K1's and K6's tiles (ops/prep.py
-// tile_floats).
+// tile_floats); K1's spherical kernel adds its three staged planes.
 constexpr int prep_floats(int nl) { return 7 * nl + 3; }
+constexpr int prep_sph_floats(int nl) { return 10 * nl + 3; }
 constexpr int rf_prep_floats(int nl) { return 5 * nl + 1; }
 
 int check_geometry(int nl, int threads, int tile, int smem, int floats) {
@@ -491,24 +622,29 @@ int check_geometry(int nl, int threads, int tile, int smem, int floats) {
 // threads, tile and smem come from ops/prep.py geometry
 extern "C" int bh_prep(const float *vs_t, const float *z_t, const int *n,
                        const float *vpvs, int nl, int C, PriorCfg cfg,
-                       RfSpecs rf, PackLayout lay, int threads, int tile,
-                       int smem, bool *valid, float *out,
+                       RfSpecs rf, SwdSets sw, PackLayout lay, int threads,
+                       int tile, int smem, bool *valid, float *out,
                        cudaStream_t stream) {
     if (rf.n < 0 || rf.n > RF_MAX) return (int)cudaErrorInvalidValue;
     for (int s = 0; s < rf.n; ++s)
         if (rf.wave[s] != 0 && rf.wave[s] != 1)
             return (int)cudaErrorInvalidValue;
-    if (int e = check_geometry(nl, threads, tile, smem, prep_floats(nl)))
+    if (sw.love && !sw.sph) return (int)cudaErrorInvalidValue;
+    if (int e = check_geometry(nl, threads, tile, smem,
+                               sw.sph ? prep_sph_floats(nl)
+                                      : prep_floats(nl)))
         return e;
     if (C == 0) return 0;
-    auto kernel = cfg.use_mantle ? prep_kernel<true> : prep_kernel<false>;
+    auto kernel = sw.sph
+        ? (cfg.use_mantle ? prep_sph_kernel<true> : prep_sph_kernel<false>)
+        : cfg.use_mantle ? prep_kernel<true> : prep_kernel<false>;
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (e != cudaSuccess) return (int)e;
     }
     kernel<<<(C + tile - 1) / tile, threads, smem, stream>>>(
-        vs_t, z_t, n, vpvs, nl, C, cfg, rf, lay, tile, valid, out);
+        vs_t, z_t, n, vpvs, nl, C, cfg, rf, sw, lay, tile, valid, out);
     return (int)cudaGetLastError();
 }
 

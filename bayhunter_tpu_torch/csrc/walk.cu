@@ -14,9 +14,16 @@
 // ``top``.  Both wave types read the model kernel's Rayleigh planes
 // [d; a; b; rho]: on a flat earth Love's [d; b; rho] are planes 0, 2
 // and 3 of that stack (pallas_prep._swd_rows builds the same d, b and
-// rho for both), and so are cm, betmx and top.  A spherical-earth Love
-// target would need its own density plane (exponent -5 against the
-// Rayleigh -2.275, pallas_prep.py:285).
+// rho for both), and so are cm, betmx and top.  On a spherical earth
+// the flattened d, b, cm, betmx and top are again shared, but the
+// density is not (exponent -5 for Love against the Rayleigh -2.275,
+// pallas_prep.py:285): a spherical Love target passes K1's Love
+// density plane as ``rho``, read in place of plane 3 (NULL: plane 3).
+// A group-velocity target is two lanes per period, t / (1 +- 0.005),
+// differenced on the host (ops/swd.py group_velocity); the kernel
+// sees lanes only, so its group arm is the lane count (up to 120 at
+// 60 periods, more rounds of a block's threads past 128) and the
+// caller's 12 bisections.
 //
 // Bound on the card: the float32 instruction stream of the secular
 // function — per layer and evaluation two square roots, two sin/cos or
@@ -72,6 +79,7 @@ enum : int { NEWTON0, SLOPE_FD, NEWTON, WALK0, WALK, BISECT, DONE };
 template <int IWAVE>
 __global__ void __launch_bounds__(WALK_MAX_THREADS)
 walk_kernel(const float *__restrict__ props,
+            const float *__restrict__ rho_in,
             const float *__restrict__ omegas,
             const float *__restrict__ c_prev,
             const float *__restrict__ cm_in,
@@ -114,7 +122,8 @@ walk_kernel(const float *__restrict__ props,
     // halfspace; consecutive threads read consecutive chains
     for (int p = 0; p < 4; ++p) {
         if (IWAVE == 1 && p == 1) continue;   // Love reads no P velocity
-        const float *plane = props + (size_t)p * nl * C + c_base;
+        const float *plane = (p == 3 && rho_in != nullptr ? rho_in
+                              : props + (size_t)p * nl * C) + c_base;
         for (int i = tid; i < nl * tc; i += T) {
             int l = i / tc, cc = i - l * tc;
             if (l <= max(s_top[cc], 0) || l == nl - 1)
@@ -312,7 +321,8 @@ walk_kernel(const float *__restrict__ props,
 }
 
 template <int IWAVE>
-int launch(const float *props, const float *omegas, const float *c_prev,
+int launch(const float *props, const float *rho, const float *omegas,
+           const float *c_prev,
            const float *cm, const float *bx, const float *top,
            const float *slope_prev, int nl, int C, int R, int max_steps,
            int nbisect, int newton_iters, float maxshift, int has_slope,
@@ -326,7 +336,8 @@ int launch(const float *props, const float *omegas, const float *c_prev,
     }
     int blocks = (C + tile - 1) / tile;
     walk_kernel<IWAVE><<<blocks, threads, smem, stream>>>(
-        props, omegas, c_prev, cm, bx, top, slope_prev, nl, C, R, max_steps,
+        props, rho, omegas, c_prev, cm, bx, top, slope_prev, nl, C, R,
+        max_steps,
         nbisect, newton_iters, maxshift, has_slope, tile, c_out, found_out,
         slope_out);
     return (int)cudaGetLastError();
@@ -335,7 +346,8 @@ int launch(const float *props, const float *omegas, const float *c_prev,
 }  // namespace
 
 // threads, tile and smem come from ops/walk.py geometry
-extern "C" int bh_walk(const float *props, const float *omegas,
+extern "C" int bh_walk(const float *props, const float *rho,
+                       const float *omegas,
                        const float *c_prev, const float *cm, const float *bx,
                        const float *top, const float *slope_prev, int nl,
                        int C, int R, int max_steps, int nbisect,
@@ -354,12 +366,12 @@ extern "C" int bh_walk(const float *props, const float *omegas,
         return (int)cudaErrorInvalidConfiguration;
     if ((long)C * R == 0) return 0;
     if (iwave == 1)
-        return launch<1>(props, omegas, c_prev, cm, bx, top, slope_prev, nl,
-                         C, R, max_steps, nbisect, newton_iters, maxshift,
+        return launch<1>(props, rho, omegas, c_prev, cm, bx, top, slope_prev,
+                         nl, C, R, max_steps, nbisect, newton_iters, maxshift,
                          has_slope, threads, tile, smem, c_out, found_out,
                          slope_out, stream);
-    return launch<2>(props, omegas, c_prev, cm, bx, top, slope_prev, nl, C,
-                     R, max_steps, nbisect, newton_iters, maxshift,
+    return launch<2>(props, rho, omegas, c_prev, cm, bx, top, slope_prev, nl,
+                     C, R, max_steps, nbisect, newton_iters, maxshift,
                      has_slope, threads, tile, smem, c_out, found_out,
                      slope_out, stream);
 }

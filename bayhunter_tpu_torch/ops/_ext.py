@@ -60,6 +60,16 @@ class RfSpecs(ctypes.Structure):
                 ('coefs', _I * RF_MAX), ('pack', _I * RF_MAX)]
 
 
+class SwdSets(ctypes.Structure):
+    """``struct SwdSets`` of ``csrc/prep.cu``: K1's dispersion operand
+    sets — the flat set (row 0), the spherical set (row ``sph_row``)
+    and the spherical Love density plane (row ``love_row``), each
+    written when its flag is set; the spherical kernel runs when
+    ``sph`` is."""
+    _fields_ = [(name, _I) for name in ('flat', 'sph', 'love', 'sph_row',
+                                        'love_row')]
+
+
 class PriorCfg(ctypes.Structure):
     """``struct PriorCfg`` of ``csrc/prep.cu``: the prior bounds K1
     checks, and the mantle prior when ``use_mantle`` is set."""
@@ -71,16 +81,16 @@ class PriorCfg(ctypes.Structure):
 
 
 SIGNATURES = {
-    # K1: vs_t, z_t, n, vpvs | nl, C | priors, rf specs, layout |
-    # threads, tile, smem (prep.geometry) | valid, out | stream
-    'bh_prep': [_P, _P, _P, _P, _I, _I, PriorCfg, RfSpecs, PackLayout, _I,
-                _I, _I, _P, _P, _P],
-    # K2: props, omegas, c_prev, cm, bx, top, slope_prev | nl, C, R,
-    # max_steps, nbisect, newton_iters, newton_maxshift, has_slope,
+    # K1: vs_t, z_t, n, vpvs | nl, C | priors, rf specs, swd sets,
+    # layout | threads, tile, smem (prep.geometry) | valid, out | stream
+    'bh_prep': [_P, _P, _P, _P, _I, _I, PriorCfg, RfSpecs, SwdSets,
+                PackLayout, _I, _I, _I, _P, _P, _P],
+    # K2: props, rho, omegas, c_prev, cm, bx, top, slope_prev | nl, C,
+    # R, max_steps, nbisect, newton_iters, newton_maxshift, has_slope,
     # iwave | threads, tile, smem (walk.geometry) | c, found, slope |
     # stream
-    'bh_walk': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    'bh_walk': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                _F, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # K3: coefs, pack, layout | nl, C, F, nsamp, wave | dw | threads,
     # tile, cs, smem (resp.geometry) | czr, czi, crr, cri | stream
     'bh_resp': [_P, _P, PackLayout, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,

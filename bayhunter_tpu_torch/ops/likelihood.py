@@ -81,6 +81,19 @@ def gauss_correlation_matrix(corr, size):
     return np.asarray(corr) ** (idx ** 2)
 
 
+def init_covariance_gauss(corr, size, rcond=None):
+    """Dense inverse (or pinv with rcond) and log-determinant of the
+    Gaussian correlation matrix, computed once per inversion on the
+    host (``Targets.Valuation``; reference: src/Targets.py:150-160)."""
+    rmatrix = gauss_correlation_matrix(corr, size)
+    if rcond is not None:
+        corr_inv = np.linalg.pinv(rmatrix, rcond=rcond)
+    else:
+        corr_inv = np.linalg.inv(rmatrix)
+    _, logdet = np.linalg.slogdet(rmatrix)
+    return corr_inv, float(logdet)
+
+
 def exp_correlation_matrix(corr, size):
     """R[i, j] = corr ** |i - j| (synthetic noise draws)."""
     idx = np.abs(np.subtract.outer(np.arange(size), np.arange(size)))

@@ -2,16 +2,21 @@
 and plain twins.
 
 Mirrors ``bayhunter_tpu/ops/pallas_prep.py`` (``_model_kernel``,
-``model_operands_t``) for flat-earth dispersion targets and any number
-(up to ``_ext.RF_MAX``) of receiver-function targets with flattening,
-each given as a (slowness, wave type) spec as the JAX kernel's
-``specs`` tuple gives it.  From depth-sorted (NL, C) nucleus planes it
+``model_operands_t``) for dispersion targets on a flat or a spherical
+earth, each given as an (iwave, flsph) spec, and any number (up to
+``_ext.RF_MAX``) of receiver-function targets with flattening, each
+given as a (slowness, wave type) spec, as the JAX kernel's ``specs``
+tuple gives them.  From depth-sorted (NL, C) nucleus planes it
 computes, per chain:
 
   * the prior validity (layer count, thickness, vs bounds, interface
     depths, optional low/high-velocity-zone limits);
-  * the walker planes [d; a; b; rho] (4 NL, C), the lower bound cm,
-    betmx and the deepest layer ``top`` (-1 for a pure halfspace);
+  * one set of walker planes [d; a; b; rho] (4 NL, C), lower bound cm,
+    betmx and deepest layer ``top`` (-1 for a pure halfspace) per
+    flattening present — flat, and spherical (``_swd_rows`` iflsph 1,
+    :func:`sphere_operands_T`: R = 6370 km, Rayleigh density exponent
+    -2.275) — and one Love density plane (exponent -5) that the
+    spherical Love targets share;
   * per RF target, the rfmini-flattened RF operands: the ((NL-1)*32, C)
     interface table (row l*32 + m*8 + e*2 + c for matrix m in (rd, td,
     ru, tu), entry e in (11, 12, 21, 22), re/im c) and the per-chain
@@ -76,12 +81,15 @@ class Geometry(typing.NamedTuple):
     smem: int
 
 
-def tile_floats(nl, model=True):
+def tile_floats(nl, model=True, sph=False):
     """Shared floats per chain of K1's (``model``) or K6's tile: K1's
     raw vs and z, its layered (then flattened) h, vp, vs, rho, the
-    running depths (nl + 1) and vpvs and n; K6's layer planes and
-    running depths."""
-    return 7 * nl + 3 if model else 5 * nl + 1
+    running depths (nl + 1) and vpvs and n, and with a spherical set
+    (``sph``) its flattened d, a, b; K6's layer planes and running
+    depths."""
+    if not model:
+        return 5 * nl + 1
+    return 10 * nl + 3 if sph else 7 * nl + 3
 
 
 def rf_items(nl, tc, off):
@@ -93,16 +101,16 @@ def rf_items(nl, tc, off):
 
 
 @functools.lru_cache(maxsize=64)
-def geometry(C, nl, n_rf, model=True):
-    """K1's (``model``) or K6's launch geometry for C chains of nl layer
-    slots and ``n_rf`` RF targets (K6: 1): tiles of 32 chains where that
-    gives at least two blocks per SM, else of 16 (a 2,048-chain cold
-    chunk: 128 blocks), and enough threads for a tile's items up to
-    ``MAX_THREADS``."""
+def geometry(C, nl, n_rf, model=True, sph=False):
+    """K1's (``model``; ``sph`` with a spherical set) or K6's launch
+    geometry for C chains of nl layer slots and ``n_rf`` RF targets
+    (K6: 1): tiles of 32 chains where that gives at least two blocks per
+    SM, else of 16 (a 2,048-chain cold chunk: 128 blocks), and enough
+    threads for a tile's items up to ``MAX_THREADS``."""
+    floats = tile_floats(nl, model, sph)
     tile = next((t for t in TILES if -(-C // t) >= 2 * _lanes.SMS
-                 and 4 * tile_floats(nl, model) * t <= _lanes.SMEM_MAX),
-                TILES[-1])
-    smem = 4 * tile_floats(nl, model) * tile
+                 and 4 * floats * t <= _lanes.SMEM_MAX), TILES[-1])
+    smem = 4 * floats * tile
     if smem > _lanes.SMEM_MAX:
         raise ValueError('%s: %d layer slots need %d bytes of shared '
                          'memory, above %d' % ('K1' if model else 'K6', nl,
@@ -112,31 +120,63 @@ def geometry(C, nl, n_rf, model=True):
     return Geometry(threads, tile, -(-C // tile), smem)
 
 
+FLAT_SETS = (1, 0, 0)       # the flat set only, as without SWD specs
+
+
+def swd_sets(swd_specs):
+    """(flat, sph, love) flags of K1's dispersion sets for ``swd_specs``
+    ((iwave, flsph) per SWD target; None: the flat set only).  The flat
+    kernel writes the flat set whatever its flag."""
+    if swd_specs is None:
+        return FLAT_SETS
+    sph = [iwave for iwave, flsph in swd_specs if flsph == 1]
+    return (int(any(flsph == 0 for _, flsph in swd_specs)),
+            int(bool(sph)), int(1 in sph))
+
+
 class Outputs(typing.NamedTuple):
-    """K1's launch constants for nl slots and its RF targets: the
-    ``specs`` and pack ``layout`` structs, and the output buffer's
-    ``rows`` and the row counts ``sizes`` of its planes in order (props,
-    [cm; bx; top], then each target's table and pack, which start at
-    the rows ``specs`` names)."""
+    """K1's launch constants for nl slots, its RF targets and its
+    dispersion sets: the ``specs`` and pack ``layout`` structs, the
+    output buffer's ``rows`` and the row counts ``sizes`` of its planes
+    in order (the flat props and [cm; bx; top], the spherical ones, the
+    Love density plane — each where written — then each RF target's
+    table and pack, which start at the rows ``specs`` names), and
+    ``swd`` the (flat, sph, love, sph_row, love_row) fields of
+    ``struct SwdSets``."""
     specs: _ext.RfSpecs
     layout: _ext.PackLayout
     rows: int
     sizes: tuple
+    swd: tuple
 
 
-def outputs(nl, rf_specs):
-    """The :class:`Outputs` of K1 for nl slots and ``rf_specs``
-    (csrc/prep.cu)."""
+def outputs(nl, rf_specs, sets=FLAT_SETS):
+    """The :class:`Outputs` of K1 for nl slots, ``rf_specs`` and the
+    dispersion ``sets`` of :func:`swd_sets` (csrc/prep.cu)."""
+    flat, sph, love = sets
+    flat = flat or not sph
     off = _rf.pack_offsets(nl)
     ncoef = (nl - 1) * 32
-    sizes = (4 * nl, 3) + (ncoef, off['rows']) * len(rf_specs)
+    sizes = ((4 * nl, 3) if flat else ()) + ((4 * nl, 3) if sph else ())
+    sph_row = 4 * nl + 3 if flat and sph else 0
+    love_row = sum(sizes) if love else 0
+    sizes += (nl,) if love else ()
+    swd = sizes
+    sizes += (ncoef, off['rows']) * len(rf_specs)
     specs = _ext.RfSpecs(n=len(rf_specs))
     for s, (p, wave) in enumerate(rf_specs):
         specs.p[s] = float(p)
         specs.wave[s] = _rf.wave_index(wave)
-        specs.coefs[s] = sum(sizes[:2 + 2 * s])
+        specs.coefs[s] = sum(sizes[:len(swd) + 2 * s])
         specs.pack[s] = specs.coefs[s] + ncoef
-    return Outputs(specs, _ext.pack_layout(off), sum(sizes), sizes)
+    return Outputs(specs, _ext.pack_layout(off), sum(sizes), sizes,
+                   (int(flat), int(sph), int(love), sph_row, love_row))
+
+
+@functools.lru_cache(maxsize=16)
+def swd_struct(swd):
+    """The ``struct SwdSets`` of an :class:`Outputs`' ``swd`` fields."""
+    return _ext.SwdSets(*swd)
 
 
 # the launch constants of the last few (nl, rf_specs): only the output
@@ -156,30 +196,47 @@ def prior_cfg(priors):
         float(mantle[0]), float(mantle[1]), int(priors.mantle is not None))
 
 
-def item_stores(geo, C, nl, n_rf, block, model=True):
+def item_stores(geo, C, nl, n_rf, block, model=True, sets=FLAT_SETS):
     """{output: (N,) int64 flat indices ``row * C + chain``, one entry
-    per store}: every store that block ``block`` of K1's (``model``) or
-    K6's launch under ``geo`` makes, from the kernels' index arithmetic.
-    Outputs: ``props`` (4 nl rows), ``valid`` (1 row), ``swd`` (cm, bx,
-    top: 3 rows) for K1, and ``coefs<s>`` ((nl - 1) * 32 rows),
-    ``pack<s>`` (the pack's rows) per RF target (K6: ``n_rf`` 1)."""
+    per store}: every store that block ``block`` of K1's (``model``,
+    with the dispersion ``sets`` of :func:`swd_sets`) or K6's launch
+    under ``geo`` makes, from the kernels' index arithmetic.  Outputs:
+    ``valid`` (1 row) for K1, the flat set's ``props`` (4 nl rows) and
+    ``swd`` (cm, bx, top: 3 rows) where written, the spherical set's
+    ``sph_props`` and ``sph_swd``, the Love density plane ``love_rho``
+    (nl rows), and ``coefs<s>`` ((nl - 1) * 32 rows), ``pack<s>`` (the
+    pack's rows) per RF target (K6: ``n_rf`` 1)."""
     off = _rf.pack_offsets(nl)
     c0 = block * geo.tile
     tc = min(geo.tile, C - c0)
     out = {}
+    flat, sph, love = sets
+    flat = flat or not sph
 
     def put(name, rows, chains):
         out.setdefault(name, []).append(
             (np.asarray(rows) * C + c0 + np.asarray(chains)).reshape(-1))
 
     if model:
-        # the Voronoi pass stores the walker planes, one item per slot
+        # the Voronoi pass stores the flat walker planes, one item per
+        # slot
         k = np.arange(nl * tc)
-        put('props', np.arange(4)[:, None] * nl + k // tc, k % tc)
-        # the two per-chain scans
-        k = np.arange(2 * tc)
+        if flat:
+            put('props', np.arange(4)[:, None] * nl + k // tc, k % tc)
+        # the per-chain scans: validity, and the flat set's scalars
+        k = np.arange((2 if flat else 1) * tc)
         put('valid', 0, k[k < tc])
-        put('swd', np.arange(3)[:, None], k[k >= tc] - tc)
+        if flat:
+            put('swd', np.arange(3)[:, None], k[k >= tc] - tc)
+        if sph:
+            # the spherical pass, one item per slot, then its scan's
+            # chain items ahead of the RF flattening's slot items
+            k = np.arange(nl * tc)
+            put('sph_props', np.arange(4)[:, None] * nl + k // tc, k % tc)
+            if love:
+                put('love_rho', k // tc, k % tc)
+            k = np.arange(tc + nl * tc)
+            put('sph_swd', np.arange(3)[:, None], k[k < tc])
     n_if = (nl - 1) * tc
     chain_rows = np.array([off['t0'], off['depth']]
                           + list(off['hmat'] + np.arange(8))
@@ -206,22 +263,69 @@ def _stack_pairs(mats):
     return out.reshape(-1, out.shape[-1])
 
 
-def model_operands_plain(vs_t, z_t, n, vpvs, priors, rf_specs):
+def sphere_operands_T(h, vp, vs, rho):
+    """K1's spherical arm (``pallas_prep._swd_rows`` iflsph 1) on (NL, C)
+    layer planes: (d, a, b, rho_R, rho_L), the flattened thickness,
+    velocities and the Rayleigh (exponent -2.275) and Love (-5)
+    densities.  Depths accumulate slot by slot, the halfspace slot's
+    bottom 1 km below its top and its thickness 0; rho times exp(ex
+    ln(2R / (r0 + r1))), the TPU kernel's form (the cold path's
+    ``swd.sphere_flatten_T`` takes a power)."""
+    nl = h.shape[0]
+    acc = torch.zeros_like(h[0])
+    zt, zb = [], []
+    for i in range(nl):
+        zt.append(acc)
+        acc = acc + (h[i] if i < nl - 1 else torch.ones_like(acc))
+        zb.append(acc)
+    r = torch.full_like(h, _swd.EARTH_R)   # tensor / tensor: IEEE division
+    r0 = r - torch.stack(zt)
+    r1 = r - torch.stack(zb)
+    d = _swd.EARTH_R * torch.log(r / r1) - _swd.EARTH_R * torch.log(r / r0)
+    d = torch.cat([d[:-1], torch.zeros_like(d[-1:])], dim=0)
+    tmp = (r + r) / (r0 + r1)
+    lt = torch.log(tmp)
+    return (d, vp * tmp, vs * tmp, rho * torch.exp(-2.275 * lt),
+            rho * torch.exp(-5.0 * lt))
+
+
+def _swd_set(d, a, b, rho):
+    """(props, cm, bx, top) of one flattening's layer planes."""
+    nl = d.shape[0]
+    idx = torch.arange(nl, device=d.device, dtype=d.dtype)[:, None]
+    cm, bx = _swd.lower_bound(a, b, dim=0)
+    top = torch.amax(torch.where(d > 0.0, idx, torch.full_like(d, -1.0)),
+                     dim=0)
+    return torch.cat([d, a, b, rho], dim=0), cm, bx, top
+
+
+def _per_target(swd_specs, flat, sph, love):
+    """One (props, cm, bx, top, rho) per (iwave, flsph) spec: the set of
+    its flattening, and the Love density plane for a spherical Love
+    target (None: plane 3 of props)."""
+    return tuple(
+        (flat if flsph == 0 else sph) + (
+            love if flsph == 1 and iwave == 1 else None,)
+        for iwave, flsph in swd_specs)
+
+
+def model_operands_plain(vs_t, z_t, n, vpvs, priors, rf_specs,
+                         swd_specs=None):
     """Plain twin of :func:`model_operands` (same arguments/results)."""
-    nl, C = vs_t.shape
-    dt, dev = vs_t.dtype, vs_t.device
     h, vp, vs, rho = _vor.voronoi_to_layers_T(vs_t, z_t, n, vpvs,
                                               priors.mantle)
     valid = _vor.model_is_valid_T(vs_t, z_t, n, vpvs, priors.as_dict,
                                   priors.thickmin, priors.lvz, priors.hvz)
-    cm, bx = _swd.lower_bound(vp, vs, dim=0)
-    idx = torch.arange(nl, device=dev, dtype=dt)[:, None]
-    top = torch.amax(torch.where(h > 0.0, idx, torch.full_like(h, -1.0)),
-                     dim=0)
-    props = torch.cat([h, vp, vs, rho], dim=0)
-    return (valid, (props, cm, bx, top),
-            tuple(rf_operands_plain(h, vp, vs, rho, p, wave)
-                  for p, wave in rf_specs))
+    flat = _swd_set(h, vp, vs, rho)
+    rf = tuple(rf_operands_plain(h, vp, vs, rho, p, wave)
+               for p, wave in rf_specs)
+    if swd_specs is None:
+        return valid, flat, rf
+    sph = love = None
+    if swd_sets(swd_specs)[1]:
+        d, a, b, rho_r, love = sphere_operands_T(h, vp, vs, rho)
+        sph = _swd_set(d, a, b, rho_r)
+    return valid, _per_target(swd_specs, flat, sph, love), rf
 
 
 def rf_operands_plain(h, vp, vs, rho, p, wave_type=_rf.P_WAVE):
@@ -255,17 +359,23 @@ def rf_operands_plain(h, vp, vs, rho, p, wave_type=_rf.P_WAVE):
     return coefs, pack
 
 
-def model_operands(vs_t, z_t, n, vpvs, priors, rf_specs):
+def model_operands(vs_t, z_t, n, vpvs, priors, rf_specs, swd_specs=None):
     """Model operands of depth-sorted (NL, C) nuclei.
 
     ``n`` (C,) int32 nucleus counts, ``vpvs`` (C,); ``priors`` a
     :class:`ModelPriors`; ``rf_specs`` one (slowness in s/km, wave
-    type) pair per RF target.  Returns ``(valid, (props, cm, bx, top),
-    rf)``: validity (C,) bool, the SWD walker operands and a tuple of
-    one (coefs, pack) per RF spec, row views of one output buffer.  CPU
-    tensors run the plain twin; CUDA tensors launch the kernel."""
+    type) pair per RF target; ``swd_specs`` one (iwave, flsph) pair per
+    dispersion target, or None.  Returns ``(valid, swd, rf)``: validity
+    (C,) bool; without ``swd_specs`` the flat set's walker operands
+    (props, cm, bx, top), with them one (props, cm, bx, top, rho) per
+    spec — its flattening's set, and the Love density plane of a
+    spherical Love target (else None: plane 3 of props); and a tuple of
+    one (coefs, pack) per RF spec; all row views of one output buffer.
+    CPU tensors run the plain twin; CUDA tensors launch the kernel (the
+    spherical one when a spec asks for a spherical set)."""
     if vs_t.device.type == 'cpu':
-        return model_operands_plain(vs_t, z_t, n, vpvs, priors, rf_specs)
+        return model_operands_plain(vs_t, z_t, n, vpvs, priors, rf_specs,
+                                    swd_specs)
     dev = vs_t.device
     nl, C = vs_t.shape
     f32 = torch.float32
@@ -276,26 +386,43 @@ def model_operands(vs_t, z_t, n, vpvs, priors, rf_specs):
     if len(rf_specs) > _ext.RF_MAX:
         raise ValueError('%d RF targets, the kernel serves at most %d'
                          % (len(rf_specs), _ext.RF_MAX))
-    lo = cached_outputs(nl, tuple(rf_specs))
-    geo = geometry(C, nl, len(rf_specs))
+    sets = swd_sets(swd_specs)
+    lo = cached_outputs(nl, tuple(rf_specs), sets)
+    geo = geometry(C, nl, len(rf_specs), True, bool(sets[1]))
     out = torch.empty((lo.rows, C), dtype=f32, device=dev)
     valid = torch.empty(C, dtype=torch.bool, device=dev)
     lib = _ext.load()
     with torch.cuda.device(dev):
         rc = lib.bh_prep(
             _ext.ptr(vs_t), _ext.ptr(z_t), _ext.ptr(n), _ext.ptr(vpvs),
-            nl, C, prior_cfg(priors), lo.specs, lo.layout, geo.threads,
-            geo.tile, geo.smem, _ext.ptr(valid), _ext.ptr(out),
-            _ext.stream(dev))
+            nl, C, prior_cfg(priors), lo.specs, swd_struct(lo.swd),
+            lo.layout, geo.threads, geo.tile, geo.smem, _ext.ptr(valid),
+            _ext.ptr(out), _ext.stream(dev))
     _ext.check(rc, 'prep')
     model_operands.launches += 1
-    # two view calls, not one per plane: each costs host time
-    props, swd, *rf = out.split(lo.sizes)
-    return (valid, (props,) + swd.unbind(),
-            tuple(zip(rf[0::2], rf[1::2])))
+    model_operands.sph_launches += sets[1]
+    # few view calls, not one per plane: each costs host time
+    parts = out.split(lo.sizes)
+    nswd = len(lo.sizes) - 2 * len(rf_specs)
+    rf = tuple(zip(parts[nswd::2], parts[nswd + 1::2]))
+    if swd_specs is None:
+        return valid, (parts[0],) + parts[1].unbind(), rf
+    flat_w, sph_w, love_w = lo.swd[:3]
+    k = 0
+    flat = sph = love = None
+    if flat_w:
+        flat = (parts[0],) + parts[1].unbind()
+        k = 2
+    if sph_w:
+        sph = (parts[k],) + parts[k + 1].unbind()
+        k += 2
+    if love_w:
+        love = parts[k]
+    return valid, _per_target(swd_specs, flat, sph, love), rf
 
 
-model_operands.launches = 0
+model_operands.launches = 0       # every launch
+model_operands.sph_launches = 0   # launches with a spherical set
 
 
 @functools.lru_cache(maxsize=16)

@@ -521,25 +521,30 @@ def inverse_transform(fr, fi, nsamp, fsamp, tshift, gauss_a, dft=None):
 
 
 def receiver_function(response, pack, nl, nsamp, fsamp, tshift, gauss_a,
-                      dft=None, wave_type=P_WAVE):
+                      dft=None, wave_type=P_WAVE, nsv=None):
     """RF time series (C, nsamp) from the response planes of
     :func:`transmission_response` and the (rows, C) pack of an NL-slot
-    model: rotation with the pack's surface velocities and spectral
-    division (:func:`deconvolve`), then :func:`inverse_transform`."""
-    vp_top, vs_top = surface_velocities(pack, nl)
+    model: rotation with the pack's surface velocities (or a fixed
+    near-surface S velocity ``nsv``) and spectral division
+    (:func:`deconvolve`), then :func:`inverse_transform`."""
+    vp_top, vs_top = surface_velocities(pack, nl, nsv)
     fr, fi = deconvolve(*response, pack[pack_offsets(nl)['p']], vp_top,
                         vs_top, wave_type)
     return inverse_transform(fr, fi, nsamp, fsamp, tshift, gauss_a, dft)
 
 
-def surface_velocities(pack, nl):
+def surface_velocities(pack, nl, nsv=None):
     """(vp_top, vs_top) of the Z/R rotation from the pack's surface rows
     (the flattened surface row equals the unflattened one, q_top(0) =
-    1): nsv = vs0 and vp_top from its Poisson ratio (wrap.cpp:73-74)."""
+    1): vs_top = nsv, by default the top layer's vs0, and vp_top from
+    nsv and the top layer's Poisson ratio (wrap.cpp:73-74;
+    ``bayhunter_tpu/sampler/evaluator.py:368-369``)."""
     off = pack_offsets(nl)
     vp0, vs0 = pack[off['vp']], pack[off['vs']]
     vpvs0 = vp0 / vs0
     poisson = (2.0 - vpvs0 * vpvs0) / (2.0 - 2.0 * vpvs0 * vpvs0)
+    if nsv is not None:
+        vs0 = torch.full_like(vs0, nsv)
     return vs0 * torch.sqrt((1.0 - poisson) / (0.5 - poisson)), vs0
 
 

@@ -23,11 +23,23 @@ Mirrors ``bayhunter_tpu/ops/swd.py``:
   * ``warm_solve``: the walker branch of ``_roots_batch_impl``
     (``:1011-1253``) on the model-kernel operands.
 
-Fundamental-mode Rayleigh and Love phase velocity on a flat earth are
-ported; group velocity, higher modes and spherical flattening are
-still to be ported.  Love's cold bracket starts from the same cm as
-Rayleigh's, the Rayleigh halfspace ``gtsolh`` of the slowest layer
-(reference ``:1286-1295``).
+  * the spherical-earth flattening ``sphere_flatten`` /
+    ``sphere_flatten_T`` (``:319-368``) that the cold path applies
+    before its search (the model kernel K1 has its own form,
+    ``prep.py``);
+  * group velocity (``:993-1006``, ``:1234-1245``, ``:1328-1378``): two
+    phase solves at the periods t / (1 + HGR) and t / (1 - HGR), 2P
+    lanes in that order, differenced (:func:`group_velocity`); float32
+    group solves keep three refinement passes (``:880-887``);
+  * higher modes: the counting search brackets the ``mode``-th sign
+    change (``:627``);
+  * the public solver ``surfdisp`` / ``surfdisp_batch``
+    (``:1389-1426``): one batched cold solve of (C, NL) models;
+  * ``interp``, the float32 semantics of ``jnp.interp`` (end values
+    held), for targets of more than 60 periods.
+
+Love's cold bracket starts from the same cm as Rayleigh's, the Rayleigh
+halfspace ``gtsolh`` of the slowest layer (reference ``:1286-1295``).
 """
 
 import ctypes
@@ -41,9 +53,12 @@ import torch
 from bayhunter_tpu_torch.ops import _ext
 from bayhunter_tpu_torch.ops import lanes as _lanes
 from bayhunter_tpu_torch.ops import walk
+from bayhunter_tpu_torch.ops.voronoi import running_sum
 
 TWOPI = 2.0 * np.pi
 DDC = 0.005          # phase-velocity grid step (surfdisp96.f:126)
+HGR = 0.005          # group-velocity frequency increment (surfdisp96.f:128)
+EARTH_R = 6370.0     # sphere(): ar (surfdisp96.f:517)
 CM_FACTOR = 0.95 * 0.90
 
 # cold counting search and refinement (ops/swd.py defaults)
@@ -467,9 +482,105 @@ def lower_bound(a, b, dim):
     return CM_FACTOR * cc1, torch.amax(b, dim=dim)
 
 
-def _find_brackets_b(omega, cm, betmx, secular, K, nblocks):
+def sphere_flatten_T(d, a, b, rho, iwave):
+    """Spherical-earth to flat-earth transform of (NL, C) layer planes
+    (surfdisp96.f:486-553; ``bayhunter_tpu/ops/swd.py``
+    ``sphere_flatten_T``): layer-midpoint velocity mapping, Biswas
+    density mapping with exponent -5 (Love, ``iwave`` 1) or -2.275
+    (Rayleigh) as ``tmp ** ex``.  The halfspace slot takes a fictitious
+    1 km thickness for its midpoint and keeps zero thickness;
+    zero-thickness padded slots keep zero thickness.  Depths accumulate
+    slot by slot (the bottoms), the tops are bottom - thickness, as the
+    JAX cold path computes them.  The model kernel K1 has its own form
+    (``prep.sphere_operands_T``)."""
+    d_eff = torch.cat([d[:-1], torch.ones_like(d[-1:])], dim=0)
+    zb = running_sum(d_eff)
+    zt = zb - d_eff
+    r = torch.full_like(d, EARTH_R)      # tensor / tensor: IEEE division
+    r0 = r - zt
+    r1 = r - zb
+    z0 = EARTH_R * torch.log(r / r0)
+    z1 = EARTH_R * torch.log(r / r1)
+    d_f = z1 - z0
+    tmp = (r + r) / (r0 + r1)
+    ex = -5.0 if iwave == 1 else -2.275
+    rho_f = rho * torch.pow(tmp, ex)
+    d_f = torch.cat([d_f[:-1], torch.zeros_like(d_f[-1:])], dim=0)
+    return d_f, a * tmp, b * tmp, rho_f
+
+
+def sphere_flatten(d, a, b, rho, iwave):
+    """:func:`sphere_flatten_T` of row-major (C, NL) layer arrays."""
+    return tuple(x.T.contiguous() for x in sphere_flatten_T(
+        d.T, a.T, b.T, rho.T, iwave))
+
+
+def lane_periods(periods, igr, device, dtype=torch.float32):
+    """(t (P,), lanes (L,)): the periods as a tensor, and the periods of
+    the solve's lanes — t itself for phase velocity, for group velocity
+    (``igr`` > 0) the 2P periods t / (1 + HGR), then t / (1 - HGR)
+    (surfdisp96.f:232-239)."""
+    t = torch.as_tensor(np.asarray(periods), dtype=dtype, device=device)
+    if not igr:
+        return t, t
+    return t, torch.cat([t / torch.full_like(t, 1.0 + HGR),
+                         t / torch.full_like(t, 1.0 - HGR)])
+
+
+def lane_frequencies(periods, igr, device, dtype=torch.float32):
+    """2 pi / T of the solve's lanes (:func:`lane_periods`)."""
+    return angular_frequencies(lane_periods(periods, igr, device, dtype)[1],
+                               device, dtype)
+
+
+def group_velocity(c, found, t):
+    """(velocity (C, P), ok (C, P)) of a group solve's roots ``c`` (C, 2P)
+    at the lane periods of :func:`lane_periods`: the differenced
+    (1/t1a - 1/t1b) / (1/(t1a ca) - 1/(t1b cb)), ok where both roots
+    were found."""
+    P = t.shape[0]
+    t1a = t / torch.full_like(t, 1.0 + HGR)
+    t1b = t / torch.full_like(t, 1.0 - HGR)
+    ca, cb = c[..., :P], c[..., P:]
+    out = ((torch.reciprocal(t1a) - torch.reciprocal(t1b))
+           / (torch.reciprocal(t1a * ca) - torch.reciprocal(t1b * cb)))
+    return out, found[..., :P] & found[..., P:]
+
+
+def velocities(c, found, t, igr):
+    """(cg, err) of a solve's roots: phase velocity, or the
+    :func:`group_velocity` of a group solve; zero-filled from the first
+    failed period on (surfdisp96.f:313-354), err when any period
+    failed."""
+    if igr:
+        c, found = group_velocity(c, found, t)
+    return _finish(c, found)
+
+
+def interp(x, xp, fp):
+    """``jnp.interp(x, xp, fp)`` of each row of ``fp`` (C, m) at the
+    points ``x`` (n,), ``xp`` (m,) increasing: linear between the
+    bracketing points of ``searchsorted(xp, x, side='right')`` clipped
+    to 1..m-1, the end values outside [xp[0], xp[-1]] (the reference's
+    >60-period interpolation, src/surf96_modsw.py:106-122)."""
+    m = xp.shape[0]
+    i = torch.clamp(torch.searchsorted(xp, x, right=True), 1, m - 1)
+    f0 = fp[..., i - 1]
+    df = fp[..., i] - f0
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    eps = float(np.spacing(np.finfo(np.float32).eps))
+    dx0 = torch.abs(dx) <= eps
+    f = torch.where(dx0, f0, f0 + (delta / torch.where(
+        dx0, torch.ones_like(dx), dx)) * df)
+    f = torch.where(x < xp[0], fp[..., :1], f)
+    return torch.where(x > xp[-1], fp[..., -1:], f)
+
+
+def _find_brackets_b(omega, cm, betmx, secular, mode, K, nblocks):
     """Counting search: walk blocks of K grid points (step DDC) up
-    from cm; the first sign change brackets the fundamental mode.  omega
+    from cm, counting sign changes; the ``mode``-th brackets that mode
+    (1 the fundamental).  omega
     (C, R), cm/betmx (C, 1); ``secular(c, omega)`` gives the values at
     the wavenumbers omega / c.  Returns (lo, found), each (C, R)."""
     dtype, dev = omega.dtype, omega.device
@@ -492,7 +603,7 @@ def _find_brackets_b(omega, cm, betmx, secular, K, nblocks):
         allsg = torch.cat([prev_sign[..., None], sg], dim=-1)
         flips = (allsg[..., 1:] != allsg[..., :-1]) & valid
         cum = cnt[..., None] + torch.cumsum(flips.to(torch.int64), -1)
-        hit = (cum == 1) & flips
+        hit = (cum == mode) & flips
         has_hit = hit.any(dim=-1)
         idx = torch.argmax(hit.to(torch.int8), dim=-1)
         lo_new = base + idx.to(dtype) * dc
@@ -552,30 +663,89 @@ def _finish(c, found):
     return cg, (~found).any(dim=-1)
 
 
-def surfdisp_roots_cold(h, vp, vs, rho, periods, iwave=2):
-    """Cold fundamental-mode phase solve (``iwave`` 1 Love, 2
-    Rayleigh) of a row-major (C, NL) batch: counting search from cm,
-    then refinement (one pass in float32, three in float64 as the
-    reference), every secular evaluation through K4 or K5.
+def surfdisp_roots_cold(h, vp, vs, rho, periods, iwave=2, mode=1, igr=0,
+                        iflsph=0):
+    """Cold solve (``iwave`` 1 Love, 2 Rayleigh; ``mode`` 1 the
+    fundamental; ``igr`` > 0 group velocity; ``iflsph`` 1 a spherical
+    earth) of a row-major (C, NL) batch: flattening, counting search
+    from cm, then refinement (one pass for float32 phase solves, three
+    for group solves and float64, as the reference), every secular
+    evaluation through K4 or K5.
 
-    Returns (cg (C, P), err (C,), roots (C, P), slopes (C, P)); the
-    slope of an unfound lane is the 0.0 no-cache sentinel."""
+    Returns (cg (C, P), err (C,), roots (C, L), slopes (C, L)), L = P
+    lanes for phase velocity and 2P for group velocity
+    (:func:`lane_periods`); the slope of an unfound lane is the 0.0
+    no-cache sentinel."""
     dtype = h.dtype
-    niter = 1 if dtype == torch.float32 else 3
+    niter = 1 if dtype == torch.float32 and not igr else 3
+    if iflsph == 1:
+        h, vp, vs, rho = sphere_flatten(h, vp, vs, rho, iwave)
     cm, betmx = lower_bound(vp, vs, dim=-1)
     cm, betmx = cm[:, None], betmx[:, None]
-    omegas = angular_frequencies(periods, h.device, dtype).expand(
+    t, lanes = lane_periods(periods, igr, h.device, dtype)
+    omegas = angular_frequencies(lanes, h.device, dtype).expand(
         h.shape[0], -1)
 
     def secular(c, omega):
         return secular_at(c, omega, h, vp, vs, rho, iwave)
 
-    lo, found = _find_brackets_b(omegas, cm, betmx, secular, KBLOCK,
+    lo, found = _find_brackets_b(omegas, cm, betmx, secular, mode, KBLOCK,
                                  NBLOCKS)
     c, slope = _ksection_refine(omegas, lo, secular, KREFINE, niter)
     slope = torch.where(found, slope, torch.zeros_like(slope))
-    cg, err = _finish(c, found)
+    cg, err = velocities(c, found, t, igr)
     return cg, err, c, slope
+
+
+def _model_tensors(arrays, device):
+    """(C, NL) layer arrays as tensors: tensors keep their dtype and go
+    to ``device`` when given; arrays become float32 on ``device``, by
+    default CUDA."""
+    if device is None:
+        device = (arrays[0].device if torch.is_tensor(arrays[0])
+                  else torch.device('cuda'))
+    out = []
+    for x in arrays:
+        if torch.is_tensor(x):
+            out.append(x.to(device))
+        else:
+            out.append(torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                                       device=device))
+    return out
+
+
+def surfdisp_batch(h, vp, vs, rho, periods, iwave=2, mode=1, igr=0,
+                   iflsph=0, device=None):
+    """Dispersion curves of C layered models (``bayhunter_tpu/ops/
+    swd.py:1389-1426``, batched as one cold solve).
+
+      h, vp, vs, rho : (C, NL) layer arrays, halfspace last
+      periods        : (P,) periods in s (increasing)
+      iwave          : 1 Love, 2 Rayleigh
+      mode           : 1 fundamental, 2 first higher, ...
+      igr            : 0 phase velocity, > 0 group velocity
+      iflsph         : 0 flat earth, 1 spherical (flattening applied)
+
+    Returns ``(cg, err)``: (C, P) phase or group velocities, zeros from
+    the first failed period on, and (C,) True where a period failed.
+    Arrays go to ``device`` (default: CUDA; tensors stay on their own
+    device unless ``device`` is given); CPU tensors run the plain twins
+    of K4 and K5."""
+    h, vp, vs, rho = _model_tensors((h, vp, vs, rho), device)
+    cg, err, _, _ = surfdisp_roots_cold(h, vp, vs, rho, periods, iwave,
+                                        mode, igr, iflsph)
+    return cg, err
+
+
+def surfdisp(h, vp, vs, rho, periods, iwave=2, mode=1, igr=0, iflsph=0,
+             device=None):
+    """Dispersion curve of one model of (NL,) layer arrays (halfspace
+    last): ``(cg (P,), err)`` of :func:`surfdisp_batch` with C = 1."""
+    def one(x):
+        return x[None] if torch.is_tensor(x) else np.asarray(x)[None]
+    cg, err = surfdisp_batch(one(h), one(vp), one(vs), one(rho), periods,
+                             iwave, mode, igr, iflsph, device)
+    return cg[0], err[0]
 
 
 # warm-solve settings per move class (ops/swd.py:1068-1195 with the
@@ -594,30 +764,38 @@ WARM_DIM = dict(newton_iters=2, ring=1, nbisect=0, cached_slope=False)
 WARM_VPVS = dict(WARM_VS)
 WARM_CAP = 2                                   # evaluator.py:111
 NEWTON_MAXSHIFT = 3.0 * 64 * DDC
+# bisections of a group solve's warm walk: 4 nrefine, nrefine 3 for
+# any float32 group solve (ops/swd.py:880-887, :1182-1195)
+GROUP_NBISECT = 12
 
 
 def angular_frequencies(periods, device, dtype=torch.float32):
-    """2 pi / T as a tensor on ``device``."""
-    t = torch.as_tensor(np.asarray(periods), dtype=dtype, device=device)
+    """2 pi / T as a tensor on ``device`` (``periods`` an array or a
+    tensor)."""
+    t = torch.as_tensor(periods, dtype=dtype, device=device)
     return torch.full_like(t, TWOPI) / t
 
 
 def warm_solve(props, cm, bx, top, omegas, c_prev, settings,
-               slope_prev=None, iwave=2):
-    """Warm phase solve (``iwave`` 1 Love, 2 Rayleigh) on the
-    model-kernel operands (the walker branch of ``_roots_batch_impl``).
+               slope_prev=None, iwave=2, rho=None, group=False):
+    """Warm root solve (``iwave`` 1 Love, 2 Rayleigh) of every lane on
+    the model-kernel operands (the walker branch of
+    ``_roots_batch_impl``).
 
-    ``props`` (4 NL, C) walker planes [d; a; b; rho]; ``cm``/``bx``/
-    ``top`` (C,); ``omegas`` (P,) angular frequencies;
-    ``c_prev``/``slope_prev`` (C, P) from the forward cache;
-    ``settings`` one of WARM_VS / WARM_Z / WARM_DIM.  The walk makes at
-    most 2 ring trips (the warm cap).  Returns (cg, err, roots, slopes)
-    as :func:`surfdisp_roots_cold`."""
+    ``props`` (4 NL, C) walker planes [d; a; b; rho] and ``rho`` an
+    optional (NL, C) density plane read in place of plane 3 (a
+    spherical Love target's); ``cm``/``bx``/``top`` (C,); ``omegas``
+    (L,) angular frequencies of the lanes; ``c_prev``/``slope_prev``
+    (C, L) from the forward cache; ``settings`` one of WARM_VS /
+    WARM_Z / WARM_DIM / WARM_VPVS; ``group``: the lanes of a group
+    target, which take ``GROUP_NBISECT`` bisections in every move class
+    (``ops/swd.py:1182-1195``).  The walk makes at most 2 ring trips
+    (the warm cap).  Returns (roots, found, slopes), each (C, L)."""
     sl = slope_prev if settings['cached_slope'] else None
-    c, found, slope = walk.warm_roots_walk(
+    return walk.warm_roots_walk(
         props, omegas, c_prev, cm, bx, top, ring_k=settings['ring'],
-        trips=WARM_CAP, nbisect=settings['nbisect'],
+        trips=WARM_CAP,
+        nbisect=GROUP_NBISECT if group else settings['nbisect'],
         newton_iters=settings['newton_iters'],
-        newton_maxshift=NEWTON_MAXSHIFT, slope_prev=sl, iwave=iwave)
-    cg, err = _finish(c, found)
-    return cg, err, c, slope
+        newton_maxshift=NEWTON_MAXSHIFT, slope_prev=sl, iwave=iwave,
+        rho=rho, group=group)

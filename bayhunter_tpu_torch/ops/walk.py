@@ -26,9 +26,13 @@ deepest layer ``top`` up (the JAX kernel uses its tile's maximum; the
 skipped identity layers change values only by a positive scale, so
 signs and found flags do not change).  Both read the model kernel's
 Rayleigh planes: on a flat earth Love's [d; b; rho] are planes 0, 2 and
-3 of that stack, and cm, betmx and top are the same for both.  A
-spherical-earth Love target would need its own density plane (exponent
--5 against -2.275, ``pallas_prep.py:285``).
+3 of that stack, and cm, betmx and top are the same for both.  On a
+spherical earth the flattened d, b, cm, betmx and top are shared too,
+but the density is not (exponent -5 against -2.275,
+``pallas_prep.py:285``): a spherical Love target passes K1's Love
+density plane as ``rho``, which replaces plane 3.  A group target's
+lanes are the 2P periods t / (1 +- HGR) (``swd.lane_periods``) with 12
+bisections; the kernel sees lanes only.
 """
 
 import functools
@@ -106,7 +110,7 @@ def lane_work(C, R, nl, iwave, top, evaluations):
 
 def warm_roots_walk_plain(props, omegas, c_prev, cm, bx, top, ring_k,
                           trips, nbisect, newton_iters, newton_maxshift,
-                          slope_prev=None, iwave=2):
+                          slope_prev=None, iwave=2, rho=None):
     """Plain PyTorch twin of the walker kernel (same arguments and
     results as :func:`warm_roots_walk`).  Leaves the number of secular
     evaluations the kernel makes for each lane, (C, R) int32, in
@@ -119,7 +123,8 @@ def warm_roots_walk_plain(props, omegas, c_prev, cm, bx, top, ring_k,
     bx = bx[:, None]
     omega = torch.clamp(omegas, min=1.0e-4)[None, :].expand_as(c_prev)
     nl = props.shape[0] // 4
-    layers = tuple(props[k * nl:(k + 1) * nl].T for k in range(4))
+    layers = tuple(props[k * nl:(k + 1) * nl].T for k in range(3)) + (
+        (props[3 * nl:] if rho is None else rho).T,)
     top_l = torch.clamp(top.to(torch.int64), max=nl - 2)
 
     def sec(c):
@@ -209,20 +214,22 @@ def warm_roots_walk_plain(props, omegas, c_prev, cm, bx, top, ring_k,
 
 def warm_roots_walk(props, omegas, c_prev, cm, bx, top, ring_k, trips,
                     nbisect, newton_iters, newton_maxshift,
-                    slope_prev=None, iwave=2):
+                    slope_prev=None, iwave=2, rho=None, group=False):
     """Warm root solve of every (chain, period) lane, ``iwave`` 1 Love
     or 2 Rayleigh.
 
     ``props`` (4 NL, C) walker planes [d; a; b; rho] and ``cm``/``bx``/
-    ``top`` (C,) from the model kernel; ``omegas`` (R,) angular
+    ``top`` (C,) from the model kernel, ``rho`` an optional (NL, C)
+    density plane read in place of plane 3; ``omegas`` (R,) angular
     frequencies; ``c_prev``/``slope_prev`` (C, R) cached roots and
-    slopes.  Returns (root, found, slope), each (C, R).  CPU tensors
-    run the plain twin; CUDA tensors launch the kernel."""
+    slopes; ``group`` marks a group target's lanes (for the launch
+    counts only).  Returns (root, found, slope), each (C, R).  CPU
+    tensors run the plain twin; CUDA tensors launch the kernel."""
     if props.device.type == 'cpu':
         return warm_roots_walk_plain(props, omegas, c_prev, cm, bx, top,
                                      ring_k, trips, nbisect,
                                      newton_iters, newton_maxshift,
-                                     slope_prev, iwave)
+                                     slope_prev, iwave, rho)
     dev = props.device
     C, R = c_prev.shape
     nl = props.shape[0] // 4
@@ -234,6 +241,8 @@ def warm_roots_walk(props, omegas, c_prev, cm, bx, top, ring_k, trips,
         _ext.require(x, name, dev, f32, (C,))
     if slope_prev is not None:
         _ext.require(slope_prev, 'slope_prev', dev, f32, (C, R))
+    if rho is not None:
+        _ext.require(rho, 'rho', dev, f32, (nl, C))
     c = torch.empty((C, R), dtype=f32, device=dev)
     found = torch.empty((C, R), dtype=torch.bool, device=dev)
     slope = torch.empty((C, R), dtype=f32, device=dev)
@@ -241,7 +250,8 @@ def warm_roots_walk(props, omegas, c_prev, cm, bx, top, ring_k, trips,
     lib = _ext.load()
     with torch.cuda.device(dev):
         rc = lib.bh_walk(
-            _ext.ptr(props), _ext.ptr(omegas), _ext.ptr(c_prev),
+            _ext.ptr(props), _ext.ptr(rho), _ext.ptr(omegas),
+            _ext.ptr(c_prev),
             _ext.ptr(cm), _ext.ptr(bx), _ext.ptr(top),
             _ext.ptr(slope_prev), nl, C, R, 2 * ring_k * trips,
             nbisect, newton_iters, float(newton_maxshift),
@@ -249,11 +259,19 @@ def warm_roots_walk(props, omegas, c_prev, cm, bx, top, ring_k, trips,
             geo.smem, _ext.ptr(c), _ext.ptr(found), _ext.ptr(slope),
             _ext.stream(dev))
     _ext.check(rc, 'walk')
-    warm_roots_walk.launches += 1
-    warm_roots_walk.love_launches += int(iwave == 1)
+    w = warm_roots_walk
+    w.launches += 1
+    w.love_launches += int(iwave == 1)
+    w.group_launches += int(group)
+    w.group_love_launches += int(group and iwave == 1)
+    w.sph_love_launches += int(rho is not None and not group)
     return c, found, slope
 
 
 warm_roots_walk.launches = 0          # every launch
 warm_roots_walk.love_launches = 0     # launches with iwave = 1
+warm_roots_walk.group_launches = 0    # group targets' launches
+warm_roots_walk.group_love_launches = 0   # of those, Love's
+# phase launches with a density plane (spherical Love phase)
+warm_roots_walk.sph_love_launches = 0
 warm_roots_walk_plain.evaluations = None

@@ -10,24 +10,32 @@ targets, the roots that warm-start the next solve and their bracket
 slopes (0.0 = no cache), which seed the Newton recentering of vs moves
 only.
 
-Ported target kinds: fundamental-mode Rayleigh and Love phase
-dispersion on a flat earth (at most 60 periods each) and P and S
-receiver functions, under every law of ``_covariance_kind``: the
-uncorrelated law (corr fixed to 0, no data errors), the uncorrelated
-law with relatively scaled data errors (corr fixed to 0, positive
-``yerr``), the exponential law (corr inverted, read per chain from the
-noise state, or an SWD corr fixed nonzero) and the whitened Gaussian
-law (RF corr fixed nonzero).  Each RF target has its own slowness, wave
-type and Gauss-cut tables, and the model kernel builds one operand set
-per RF target.  The optional mantle prior (vs threshold, mantle vp/vs)
-applies on the cold path (``voronoi_to_layers``) and in K1.
+Ported target kinds: the four dispersion targets of the reference
+(Rayleigh and Love, phase and group velocity), on a flat or a
+spherical earth, of any mode, of any number of periods (more than 60
+are solved at 60 evenly spaced and interpolated, ``_TargetSpec``
+``interp_x``), and P and S receiver functions with the top-layer or a
+fixed (``nsv``) rotation velocity, under every law of
+``_covariance_kind``: the uncorrelated law (corr fixed to 0, no data
+errors), the uncorrelated law with relatively scaled data errors (corr
+fixed to 0, positive ``yerr``), the exponential law (corr inverted,
+read per chain from the noise state, or an SWD corr fixed nonzero) and
+the whitened Gaussian law (RF corr fixed nonzero).  Each target reads
+its forward parameters from its plugin's ``modelparams``
+(``target.moddata.plugin``), as the JAX evaluator does.  Each RF target
+has its own slowness, wave type and Gauss-cut tables, and the model
+kernel builds one operand set per RF target and one dispersion set per
+flattening present.  The optional mantle prior (vs threshold, mantle
+vp/vs) applies on the cold path (``voronoi_to_layers``) and in K1.  A
+custom target (no dispersion or RF ref) is not ported.
 
 Kernels on each path: the cold evaluation runs K4 (Rayleigh) or K5
 (Love) for every secular evaluation of its counting search and
 refinement, and K6 then K3 over all nsamp/2 + 1 frequencies for each
-RF target; a warm step runs K1, K2 per dispersion target (both wave
-types on K1's planes) and K3 over the Gauss-cut frequencies per RF
-target.
+RF target; a warm step runs K1 (its spherical kernel when a target is
+spherical), K2 per dispersion target (a group target's 2P lanes with
+12 bisections; a spherical Love target on K1's Love density plane) and
+K3 over the Gauss-cut frequencies per RF target.
 """
 
 import numpy as np
@@ -45,6 +53,8 @@ LOGL_SENTINEL = -1e15
 MISFIT_SENTINEL = 1e15
 COLD_CHUNK = 2048       # chains per cold-solve chunk (bounds the
 #                         (C, periods, 64) candidate grids)
+SWD_REFS = {'rdispph': (2, 0), 'ldispph': (1, 0),
+            'rdispgr': (2, 1), 'ldispgr': (1, 1)}
 RF_WAVES = {'prf': _rf.P_WAVE, 'srf': _rf.SV_WAVE}
 
 
@@ -66,36 +76,50 @@ class TargetSpec:
 
     def __init__(self, target, corr_fixed, corr_value, rcond, device,
                  dof_correction=False):
-        self.kind = target.noiseref
+        self.ref = target.ref
+        self.kind = 'swd' if target.ref in SWD_REFS else \
+            'rf' if target.ref in RF_WAVES else 'custom'
         self.yobs = torch.tensor(target.obsdata.y, dtype=DTYPE,
                                  device=device)
         self.ndata = int(self.yobs.shape[-1])
         self.cov = _covariance_kind(target, corr_fixed, corr_value)
+        plugin = target.moddata.plugin
         if self.kind == 'swd':
-            if (target.igr != 0
-                    or target.modelparams['mode'] != 1
-                    or target.modelparams['flsph'] != 0
-                    or target.obsdata.x.size > 60):
-                raise NotImplementedError(
-                    'only fundamental-mode Rayleigh and Love phase '
-                    'velocity on a flat earth (<= 60 periods) is ported')
-            self.iwave = int(target.iwave)
-            self.periods = np.asarray(target.obsdata.x, np.float32)
-            self.omegas = _swd.angular_frequencies(self.periods, device)
-        else:
-            mp = target.modelparams
-            if target.ref not in RF_WAVES or mp['nsv'] is not None:
-                raise NotImplementedError(
-                    'only P and S receiver functions with the top-layer '
-                    'rotation velocity are ported')
+            self.iwave, self.igr = SWD_REFS[target.ref]
+            self.mode = int(plugin.modelparams.get('mode', 1))
+            self.flsph = int(plugin.modelparams.get('flsph', 0))
+            obsx = np.asarray(target.obsdata.x, float)
+            self.interp_x = None
+            if obsx.size > 60:
+                # the reference's 60-period cap, then interpolation
+                # (src/surf96_modsw.py:35-43, 106-122)
+                self.periods = np.linspace(obsx.min(), obsx.max(),
+                                           60).astype(np.float32)
+                self.interp_x = torch.tensor(obsx, dtype=DTYPE,
+                                             device=device)
+            else:
+                self.periods = obsx.astype(np.float32)
+            self.t, lanes = _swd.lane_periods(self.periods, self.igr,
+                                              device)
+            self.omegas = _swd.angular_frequencies(lanes, device)
+        elif self.kind == 'rf':
+            mp = plugin.modelparams
             self.wave_type = RF_WAVES[target.ref]
-            self.fsamp, self.tshift = target.fsamp, target.tshft
-            self.nsamp = target.nsamp
+            self.fsamp, self.tshift = float(plugin.fsamp), \
+                float(plugin.tshft)
+            self.nsamp = int(plugin.nsamp)
             self.gauss_a = float(mp['gauss'])
             self.p_skm = float(mp['p']) * _rf.DEG_PER_KM
+            self.nsv = None if mp.get('nsv') is None else float(mp['nsv'])
             self.cut = _rf.gauss_cut(self.nsamp, self.fsamp, self.gauss_a)
             self.dft = _rf.dft_tables(self.cut, self.nsamp, self.fsamp,
                                       self.tshift, self.gauss_a, device)
+        else:
+            raise NotImplementedError(
+                'custom target %r: its forward plugin must define '
+                'run_model_jax(h, vp, vs, rho) -> y in the JAX package '
+                '(templates/myfwd.py); the PyTorch port has no forward '
+                'hook for custom plugins yet' % target.ref)
         if self.cov == 'gauss':
             self.dof_correction = bool(dof_correction)
             w, logdet = lk.gauss_whitener(corr_value, self.ndata,
@@ -128,6 +152,20 @@ class TargetSpec:
         return lk.loglike_gauss_white(ydiff, sigma, self.whitener,
                                       self.logcorr_det)
 
+    def interpolated(self, cg):
+        """Velocities at the solved periods, at the observed ones: the
+        same, or interpolated from the 60 solved past 60."""
+        if self.interp_x is None:
+            return cg
+        return _swd.interp(self.interp_x, self.t, cg)
+
+    def swd_output(self, c, found):
+        """(y, tvalid) of a dispersion solve's lane roots: the phase or
+        group velocities zero-filled from the first failed period, at
+        the observed periods."""
+        cg, err = _swd.velocities(c, found, self.t, self.igr)
+        return self.interpolated(cg), ~err
+
 
 class Evaluator:
     """Joint-target evaluators sharing a forward cache.
@@ -159,6 +197,10 @@ class Evaluator:
         # the model kernel builds one operand set per entry
         self.rf_specs = tuple((s.p_skm, s.wave_type) for s in self.specs
                               if s.kind == 'rf')
+        # the (iwave, flsph) of each dispersion target, in target order:
+        # the model kernel builds one set per flattening present
+        self.swd_specs = tuple((s.iwave, s.flsph) for s in self.specs
+                               if s.kind == 'swd')
         self.priors = _prep.ModelPriors(
             int(priors['layers'][0]), int(priors['layers'][1]),
             float(priors['vs'][0]), float(priors['vs'][1]),
@@ -203,7 +245,7 @@ class Evaluator:
         rf = _rf.receiver_function(response, pack, self.nl, spec.nsamp,
                                    spec.fsamp, spec.tshift, spec.gauss_a,
                                    None if cold else spec.dft,
-                                   spec.wave_type)
+                                   spec.wave_type, spec.nsv)
         y = rf[:, :spec.ndata]
         return y, torch.isfinite(y).all(dim=-1)
 
@@ -232,10 +274,12 @@ class Evaluator:
         for spec in self.specs:
             if spec.kind == 'swd':
                 cg, err, roots, slopes = _swd.surfdisp_roots_cold(
-                    h, vp, vs_l, rho, spec.periods, spec.iwave)
-                ys.append(cg)
+                    h, vp, vs_l, rho, spec.periods, spec.iwave, spec.mode,
+                    spec.igr, spec.flsph)
+                y = spec.interpolated(cg)
+                ys.append(y)
                 tvalids.append(~err)
-                cache.append((cg, roots, slopes))
+                cache.append((y, roots, slopes))
                 continue
             coefs, pack = _prep.rf_operands(
                 *(x.T.contiguous() for x in (h, vp, vs_l, rho)), spec.p_skm,
@@ -266,18 +310,21 @@ class Evaluator:
         response per RF target on its own K1 operand set.  The last
         result is the kernel's prior validity."""
         C = vs_t.shape[1]
-        mvalid, (props, cm, bx, top), rf_ops = _prep.model_operands(
-            vs_t, z_t, n, vpvs, self.priors, self.rf_specs)
-        rf_ops = iter(rf_ops)
+        mvalid, swd_ops, rf_ops = _prep.model_operands(
+            vs_t, z_t, n, vpvs, self.priors, self.rf_specs, self.swd_specs)
+        swd_ops, rf_ops = iter(swd_ops), iter(rf_ops)
         ys, tvalids, new_cache = [], [], []
         for spec, (_, roots, slopes) in zip(self.specs, cache):
             if spec.kind == 'swd':
-                cg, err, roots_n, slopes_n = _swd.warm_solve(
+                props, cm, bx, top, rho = next(swd_ops)
+                c, found, slopes_n = _swd.warm_solve(
                     props, cm, bx, top, spec.omegas, roots, warm,
-                    slope_prev=slopes, iwave=spec.iwave)
-                ys.append(cg)
-                tvalids.append(~err)
-                new_cache.append((cg, roots_n, slopes_n))
+                    slope_prev=slopes, iwave=spec.iwave, rho=rho,
+                    group=bool(spec.igr))
+                y, tvalid = spec.swd_output(c, found)
+                ys.append(y)
+                tvalids.append(tvalid)
+                new_cache.append((y, c, slopes_n))
                 continue
             coefs, pack = next(rf_ops)
             response = _resp.resp(coefs, pack, spec.cut, spec.nsamp,

@@ -1,11 +1,11 @@
-"""Synthetic 'observed' noise and the expected likelihood.
+"""Synthetic 'observed' data generation and expected likelihood.
 
-A copy of the host part of ``bayhunter_tpu/synthobs.py`` (the reference
-``SynthObs``, src/SynthObs.py): correlated noise draws from the module's
-``rstate`` (seeded 333, as there), the expected-likelihood oracle and
-the ASCII writers.  Forward-modelling synthetic data
-(``return_swddata``, ``return_rfdata``) needs the forward plugins, which
-are not ported yet: the two raise.
+A copy of ``bayhunter_tpu/synthobs.py`` (the reference ``SynthObs``,
+src/SynthObs.py): forward-models all six target types for a given
+(h, vs, vpvs) through the targets' plugins (``forward/``: ``SurfDisp``,
+``SynRF``, on CUDA unless ``device='cpu'`` is given), draws
+correlated noise from the module's ``rstate`` (seeded 333, as there),
+computes the expected-likelihood oracle and writes the ASCII files.
 """
 
 import logging
@@ -13,6 +13,7 @@ import os
 
 import numpy as np
 
+from bayhunter_tpu_torch import Targets
 from bayhunter_tpu_torch.ops.likelihood import (exp_correlation_matrix,
                                                 gauss_correlation_matrix)
 
@@ -21,40 +22,71 @@ logger = logging.getLogger(__name__)
 rstate = np.random.RandomState(333)
 
 
-def _write_model(h, vp, vs, rho, modfile, qp=None, qs=None):
-    """The RF plugin's ASCII model file (``forward/rf_plugin.py``
-    ``write_startmodel``): depth of each layer top, vp, vs, rho, qp,
-    qs."""
-    h = np.asarray(h, float)
-    qp = np.ones(h.size) * 500. if qp is None else np.asarray(qp)
-    qs = np.ones(h.size) * 225. if qs is None else np.asarray(qs)
-    z = np.cumsum(h)
-    z = np.concatenate(([0], z[:-1]))
-    fmt = {'z': '%.2f', 'vp': '%.4f', 'vs': '%.4f', 'rho': '%.4f',
-           'qp': '%.1f', 'qs': '%.1f'}
-    cols = [('z', z), ('vp', vp), ('vs', vs), ('rho', rho),
-            ('qp', qp), ('qs', qs)]
-    cols = [(k, np.asarray(v, float)) for k, v in cols if v is not None]
-    with open(modfile, 'w') as f:
-        f.write('\t'.join(k for k, _ in cols) + '\n')
-        line = '\t'.join(fmt[k] for k, _ in cols) + '\n'
-        for i in range(z.size):
-            f.write(line % tuple(v[i] for _, v in cols))
-
-
 class SynthObs():
     """Synthetic correlated noise and the expected likelihood of the
     true model."""
 
     @staticmethod
-    def return_swddata(h, vs, vpvs=1.73, pars=dict(), x=None):
-        raise NotImplementedError('synthetic SWD data needs the forward '
-                                  'plugins, which are not ported yet')
+    def return_swddata(h, vs, vpvs=1.73, pars=dict(), x=None, device=None):
+        """Forward-model all 4 SWD targets
+        (reference: src/SynthObs.py:24-55)."""
+        if x is None:
+            x = np.linspace(1, 40, 20)
+        h = np.array(h, float)
+        vs = np.array(vs, float)
+        mode = pars.get('mode', 1)
+
+        targets = [Targets.RayleighDispersionPhase(x=x, y=None),
+                   Targets.RayleighDispersionGroup(x=x, y=None),
+                   Targets.LoveDispersionPhase(x=x, y=None),
+                   Targets.LoveDispersionGroup(x=x, y=None)]
+        for target in targets:
+            target.moddata.plugin.set_modelparams(mode=mode)
+
+        vp = vs * vpvs
+        rho = vp * 0.32 + 0.77
+
+        data = {}
+        for target in targets:
+            xmod, ymod = target.moddata.plugin.run_model(
+                h=h, vp=vp, vs=vs, rho=rho, device=device)
+            data[target.ref] = np.array([xmod, ymod])
+        logger.info('Compute SWD for %d periods, with model vp/vs %.2f.'
+                    % (np.size(x), vpvs))
+        return data
 
     @staticmethod
-    def return_rfdata(h, vs, vpvs=1.73, pars=dict(), x=None):
-        raise NotImplementedError('synthetic RF data needs the forward '
-                                  'plugins, which are not ported yet')
+    def return_rfdata(h, vs, vpvs=1.73, pars=dict(), x=None, device=None):
+        """Forward-model both RF targets
+        (reference: src/SynthObs.py:57-99)."""
+        if x is None:
+            x = np.linspace(-5, 35, 201)
+        h = np.array(h, float)
+        vs = np.array(vs, float)
+
+        gauss = pars.get('gauss', 1.0)
+        water = pars.get('water', 0.001)
+        p = pars.get('p', 6.4)
+        nsv = pars.get('nsv', None)
+
+        targets = [Targets.PReceiverFunction(x=x, y=None),
+                   Targets.SReceiverFunction(x=x, y=None)]
+        for target in targets:
+            target.moddata.plugin.set_modelparams(
+                gauss=gauss, water=water, p=p, nsv=nsv)
+
+        vp = vs * vpvs
+        rho = vp * 0.32 + 0.77
+
+        data = {}
+        for target in targets:
+            xmod, ymod = target.moddata.plugin.run_model(
+                h=h, vp=vp, vs=vs, rho=rho, device=device)
+            data[target.ref] = np.array([xmod, ymod])
+
+        logger.info('Compute RF with gauss: %.2f, waterlevel: %.4f, '
+                    'slowness: %.2f' % (gauss, water, p))
+        return data
 
     @staticmethod
     def save_data(data, outfile=None):
@@ -81,7 +113,9 @@ class SynthObs():
         rho = vp * 0.32 + 0.77
         if outfile is None:
             outfile = 'syn_mod.dat'
-        _write_model(h, vp, vs, rho, outfile)
+        x = np.arange(10)
+        target = Targets.PReceiverFunction(x=x, y=None)
+        target.moddata.plugin.write_startmodel(h, vp, vs, rho, outfile)
         logger.info('Model file saved: %s' % outfile)
 
     @staticmethod

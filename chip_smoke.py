@@ -34,7 +34,20 @@ the warm walker for both wave types (K2), the warm P and S receiver
 functions (K3), and ``rf.synrf`` with uniform Q given as arrays (K6,
 K3r) for both waves.
 
-Then it drives four paths through the port's entry points, each with
+New arms, (e): K1's spherical arm (``prep_sph_kernel``: the flat set,
+the spherical Rayleigh set and the spherical Love density plane beside
+the P- and S-RF sets) at 10,240 grown models and on the 2,048-chain
+width, K2's group arm (2P lanes, 12 bisections; Rayleigh and Love at 21
+and 60 periods, 42 and 120 lanes, in the vs, z and dim settings) and K2
+on the spherical set (Rayleigh, and Love with its density plane), each
+bit for bit against its twin into NaN-filled memory, timed by CUDA
+events and by the profiler beside the flat arms (``device_ms``).  Then
+(f), the public forward without a device argument: ``SurfDisp`` and
+``SynRF`` on the tutorial truth model against the six goldens, and
+``surfdisp_batch`` of 10,240 grown models for Rayleigh group velocity,
+spherical Rayleigh phase velocity and mode 2, in models/s.
+
+Then it drives the paths through the port's entry points, each with
 every launch count set to 0 just before it and read just after:
 
   * ``tutorial`` — ``bench.py``'s tutorial joint inversion (Rayleigh
@@ -47,7 +60,14 @@ every launch count set to 0 just before it and read just after:
     grown models under a seeded per-layer Q model, P and SV (K6, K3r);
   * ``tutorial_prf_srf`` — Rayleigh phase + P-RF + S-RF: cold init (K4,
     K6 and K3 for both waves), early cycles, timed late cycles (K1 with
-    two RF operand sets, K2, K3 twice per model step).
+    two RF operand sets, K2, K3 twice per model step);
+  * (g) ``tutorial_six`` — the six target kinds (Rayleigh and Love phase
+    and group velocity, P- and S-RF): cold init (K4, K5, K6, K3), early
+    cycles, ``SIX_LATE_CYCLES`` timed late cycles (K1 with two RF sets,
+    K2 for Rayleigh and Love phase and group lanes, K3 for P and SV),
+    then profiled as ``tutorial`` is; and ``tutorial_six_sph``, its
+    dispersion targets on a spherical earth (K1's spherical kernel, K2
+    on the spherical set, Love with its density plane).
 
 Then it drives the inversion as users run it,
 ``MCMC_Optimizer.mp_inversion``, each run with the launch counts set to
@@ -111,7 +131,14 @@ COLD_CHUNK = 2048      # chains per cold-init chunk (evaluator.COLD_CHUNK)
 # device kernel names, as the profiler lists them
 KERNEL_NAMES = {'K1': '::prep_kernel<', 'K2': 'walk_kernel',
                 'K3': 'resp_kernel', 'K4': 'secular_kernel<2>',
-                'K5': 'secular_kernel<1>', 'K6': 'rf_prep_kernel'}
+                'K5': 'secular_kernel<1>', 'K6': 'rf_prep_kernel',
+                'K1_sph': '::prep_sph_kernel<'}
+SIX_LATE_CYCLES = 32  # timed late cycles of each six-target path
+PUBLIC_CALLS = 3      # surfdisp_batch calls per case of phase (f)
+# (e): K1's dispersion sets — the flat set, the spherical Rayleigh set
+# and the spherical Love density plane
+SPH_SPECS = ((2, 0), (2, 1), (1, 1))
+GROUP_PERIODS = (21, 60)   # (e): K2's group arm at 42 and 120 lanes
 WARM_KERNELS = ('K1', 'K2', 'K3')     # the kernels of a late step
 # kernel entries whose ptxas lines tools/kernel_variants.py reports
 PTXAS_KERNELS = ('prep_kernel', 'walk_kernel', 'resp_kernel',
@@ -170,6 +197,8 @@ OPS = dict(
     model_slot=35,        # voronoi, validity and SWD rows of one slot
     mantle_slot=4,        # prep.cu mantle arm: compare, min, select, mul
     model_fixed=150,      # gtsolh's five Newton steps
+    sph_slot=30,          # prep.cu sphere_slot: three logs, two exps,
+    #                       three divisions, and the scan of one slot
 )
 
 
@@ -279,10 +308,11 @@ def profile_kernels(torch, dev, kernels):
     main paths: a torch.profiler session leaves the host's later kernel
     launches slower, which would lower the rates measured after it."""
     calls = profiled_calls(torch, *phase_inputs(torch, dev))
+    calls.update(WALK_CALLS)
     for k in kernels:
+        name = KERNEL_NAMES.get(k['counter'], KERNEL_NAMES[k['counter'][:2]])
         if k['ms'] is None:
-            k['ms'] = profiled(calls[k['counter']], KERNEL_REPS,
-                               KERNEL_NAMES[k['counter'][:2]], False)
+            k['ms'] = profiled(calls[k['counter']], KERNEL_REPS, name, False)
             if k['ms'] is None:
                 # no session recorded a launch: the wrapper's time by
                 # CUDA events stands in, marked as such
@@ -291,9 +321,9 @@ def profile_kernels(torch, dev, kernels):
                     % k['name'])
                 k['ms'], k['ms_by'] = k['wrapper_ms'], 'events'
             k['bound_share'] = k['bound_ms'] / k['ms']
-        elif k['counter'] in ('K4', 'K5'):
+        elif k['counter'] in ('K4', 'K5') or k['counter'] in WALK_CALLS:
             k['device_ms'] = profiled(calls[k['counter']], KERNEL_REPS,
-                                      KERNEL_NAMES[k['counter']], False)
+                                      name, False)
     log('K4/K5 on the cold chunk\'s sign-0 and refine grids, device ms '
         '(profiler): ' + json.dumps({
             key: profiled(call, KERNEL_REPS, KERNEL_NAMES[key[:2]], False)
@@ -336,17 +366,18 @@ def secular_ops(top, evaluations, iwave):
     return float((evaluations * per_eval).sum())
 
 
-def warm_starts(torch, layers, periods, iwave):
-    """K2's inputs of the kernel phase, (c_prev, slopes) each (C, R):
-    the cold roots and bracket slopes of the (C, NL) ``layers`` (K4 or
-    K5, 2,048 chains at a time), the roots moved off the DDC grid by a
+def warm_starts(torch, layers, periods, iwave, igr=0):
+    """K2's inputs of the kernel phase, (c_prev, slopes) each (C, R), R
+    the periods' lanes (2 per period for group velocity, ``igr``): the
+    cold roots and bracket slopes of the (C, NL) ``layers`` (K4 or K5,
+    2,048 chains at a time), the roots moved off the DDC grid by a
     seeded offset."""
     from bayhunter_tpu_torch.ops import swd
 
     roots, slopes = [], []
     for i in range(0, layers[0].shape[0], 2048):
         _, _, r_, s_ = swd.surfdisp_roots_cold(
-            *(x[i:i + 2048] for x in layers), periods, iwave)
+            *(x[i:i + 2048] for x in layers), periods, iwave, igr=igr)
         roots.append(r_)
         slopes.append(s_)
     roots, slopes = torch.cat(roots), torch.cat(slopes)
@@ -356,10 +387,16 @@ def warm_starts(torch, layers, periods, iwave):
         roots.shape, generator=gen, device=roots.device) - 0.5), slopes
 
 
-def check_walker(torch, counter, name, iwave, wargs, slopes):
+WALK_CALLS = {}   # K2 record counter -> its vs-move call (profiled)
+
+
+def check_walker(torch, counter, name, iwave, wargs, slopes, rho=None,
+                 group=False, record=True):
     """K2 for one wave type against its twin, for each move class:
-    (record, max error).  The bound counts the secular evaluations each
-    lane makes (the twin counts them)."""
+    (record, max error), or with ``record`` False None.  ``rho``: the
+    density plane read in place of plane 3; ``group``: a group target's
+    lanes, 12 bisections in every move class.  The bound counts the
+    secular evaluations each lane makes (the twin counts them)."""
     from bayhunter_tpu_torch.ops import lanes, swd, walk
 
     props, omegas, c_prev, cm, bx, top = wargs
@@ -372,11 +409,16 @@ def check_walker(torch, counter, name, iwave, wargs, slopes):
                      ('dim', swd.WARM_DIM)):
         sl = slopes if st['cached_slope'] else None
         kw = dict(ring_k=st['ring'], trips=swd.WARM_CAP,
-                  nbisect=st['nbisect'], newton_iters=st['newton_iters'],
+                  nbisect=swd.GROUP_NBISECT if group else st['nbisect'],
+                  newton_iters=st['newton_iters'],
                   newton_maxshift=swd.NEWTON_MAXSHIFT, slope_prev=sl,
-                  iwave=iwave)
-        kc, kf, ks = walk.warm_roots_walk(*wargs, **kw)
+                  iwave=iwave, rho=rho)
+        cuda_cases()._poison(props.device)
+        kc, kf, ks = walk.warm_roots_walk(*wargs, group=group, **kw)
         pc, pf, ps = walk.warm_roots_walk_plain(*wargs, **kw)
+        if move == 'vs' and record:
+            WALK_CALLS[counter] = (lambda kw=kw: walk.warm_roots_walk(
+                *wargs, group=group, **kw))
         evals = walk.warm_roots_walk_plain.evaluations
         torch.cuda.synchronize()
         flips = float((kf != pf).float().mean())
@@ -400,13 +442,22 @@ def check_walker(torch, counter, name, iwave, wargs, slopes):
                walks / evs))
         if not (flips <= 1e-4 and p90 < 2e-5 and dmax < 5e-4 and bitwise):
             raise AssertionError('%s differs from its twin' % name)
-        ms += timed(lambda: walk.warm_roots_walk(*wargs, **kw), KERNEL_REPS)
+        ms += timed(lambda: walk.warm_roots_walk(*wargs, group=group, **kw),
+                    KERNEL_REPS)
+        if not record:
+            continue
         plain_ms += timed(lambda: walk.warm_roots_walk_plain(*wargs, **kw),
                           2)
-        moved += nbytes(props, omegas, c_prev, cm, bx, top, sl, kc, kf, ks)
+        moved += nbytes(props, omegas, c_prev, cm, bx, top, sl, rho, kc, kf,
+                        ks)
         ops += secular_ops(top.clamp(max=NL - 2), evals.double(), iwave)
         ops += OPS['walk_eval'] * float(evals.double().sum())
-    log('%s: geometry %s' % (name, walk.geometry(C_MAIN, R, NL, iwave)))
+    geo = walk.geometry(C_MAIN, R, NL, iwave)
+    log('%s: geometry %s, %d of a block\'s %d threads serve lanes in its '
+        'first round; kernel %.4f ms by CUDA events (vs, z, dim average)'
+        % (name, geo, min(geo.tile * R, geo.threads), geo.threads, ms / 3))
+    if not record:
+        return None
     return entry(counter, name, 'walk.cu', 'pallas_walk.py:71', err, ms / 3,
                  plain_ms / 3, moved / 3, ops / 3)
 
@@ -484,7 +535,7 @@ def secular_grids(torch, layers, omegas):
     koff = torch.arange(1, swd.KBLOCK + 1, device=dev) * swd.DDC
     lo, _ = swd._find_brackets_b(
         omega, cm, betmx, lambda c, om: swd.secular_at(c, om, *layers, 2),
-        swd.KBLOCK, swd.NBLOCKS)
+        1, swd.KBLOCK, swd.NBLOCKS)
     fracs = (torch.arange(0, swd.KREFINE + 2, device=dev)
              / (swd.KREFINE + 1))
     return {'sign0': (cm, omega),
@@ -555,6 +606,8 @@ def profiled_calls(torch, ev, nuclei, planes, cold):
                                                  ev.rf_specs[:1]),
         'K1_2rf': lambda: prep.model_operands(*nuclei, ev.priors,
                                               ev.rf_specs),
+        'K1_sph': lambda: prep.model_operands(*nuclei, ev.priors,
+                                              ev.rf_specs, SPH_SPECS),
         'K6': lambda: prep.rf_operands(*planes, p),
         'K6_cold': lambda: prep.rf_operands(*cplanes, p)}
     for kernel, iwave in (('K4', 2), ('K5', 1)):
@@ -790,6 +843,101 @@ def check_kernels(torch, dev):
                          * (OPS['resp_layer'] + 2 * OPS['resp_q_phase'])
                          ).sum())))
         log_resp_lane_work(resp, tag, cut, depth, True)
+    out += check_new_arms(torch, dev, ev, nuclei, layers, props, cm, bx, top,
+                          calls)
+    return out
+
+
+def check_new_arms(torch, dev, ev, nuclei, layers, props, cm, bx, top,
+                   calls):
+    """(e): K1's spherical arm and K2's group and spherical-Love arms
+    against their twins bit for bit, into NaN-filled memory: K1 with the
+    flat set, the spherical Rayleigh set and the spherical Love density
+    plane (``SPH_SPECS``) and the P- and S-RF sets at 10,240 grown
+    models and the cold chunk's width; K2's group arm, Rayleigh and
+    Love, at 21 and 60 periods (42 and 120 lanes), in the vs, z and dim
+    settings, on the flat set of the 10,240 grown models; K2 on the
+    spherical set, Rayleigh on its planes and Love with the density
+    plane.  Returns the records K1_sph, K2_group_R, K2_group_L and
+    K2_sph_L (their device times by the profiler after the main paths,
+    beside the flat arms')."""
+    from bayhunter_tpu_torch.ops import prep, swd
+
+    out = []
+    specs = SPH_SPECS
+    for C in (C_MAIN, COLD_CHUNK):
+        part = tuple(x[..., :C].contiguous() for x in nuclei)
+        cuda_cases()._poison(dev)
+        kv, ksw, krf = prep.model_operands(*part, ev.priors, ev.rf_specs,
+                                           specs)
+        pv, psw, prf = prep.model_operands_plain(*part, ev.priors,
+                                                 ev.rf_specs, specs)
+        if not torch.equal(kv, pv):
+            raise AssertionError('K1 (spherical) validity differs from '
+                                 'its twin on %d chains'
+                                 % int((kv != pv).sum()))
+        kset = ksw[0][:4] + ksw[1][:4] + (ksw[2][4],) + sum(krf, ())
+        pset = psw[0][:4] + psw[1][:4] + (psw[2][4],) + sum(prf, ())
+        err = check_bitwise(
+            torch, 'K1 model operands, spherical arm (flat set, spherical '
+            'set, Love density plane, P- and S-RF), %d chains, geometry %s'
+            % (C, prep.geometry(C, NL, len(ev.rf_specs), True, True)),
+            kset, pset)
+        if C == C_MAIN:
+            err1, sph = err, ksw
+    if torch.equal(sph[1][0], sph[0][0]) or torch.equal(
+            sph[2][4], sph[1][0][3 * NL:]):
+        raise AssertionError('the spherical arm changed no walker plane')
+    args = nuclei + (ev.priors, ev.rf_specs, specs)
+    kv, ksw, krf = prep.model_operands(*args)
+    out.append(entry(
+        'K1_sph', 'K1 model operands, spherical arm', 'prep.cu',
+        'pallas_prep.py:315', err1, None,
+        timed(lambda: prep.model_operands_plain(*args), 3),
+        nbytes(*nuclei, kv, *ksw[0][:4], *ksw[1][:4], ksw[2][4],
+               *sum(krf, ())),
+        C_MAIN * (2 * OPS['model_fixed'] + NL * (
+            OPS['model_slot'] + OPS['rf_flatten_slot'] + OPS['sph_slot'])
+            + len(ev.rf_specs) * (OPS['rf_fixed'] + NL * OPS['rf_t0_slot']
+                                  + (NL - 1) * OPS['rf_interface'])),
+        timed(calls['K1_sph'], KERNEL_REPS)))
+
+    # K2's group arm on the flat set: 2R lanes, 12 bisections
+    for iwave, counter, tag in (
+            (2, 'K2_group_R', 'K2 warm root walker (Rayleigh group)'),
+            (1, 'K2_group_L', 'K2 warm root walker (Love group)')):
+        for R in GROUP_PERIODS:
+            periods = np.linspace(1.0, 41.0 if R == 21 else 60.0,
+                                  R).astype(np.float32)
+            c_prev, slopes = warm_starts(torch, layers, periods, iwave, 1)
+            om = swd.lane_frequencies(periods, 1, dev)
+            rec = check_walker(torch, counter, '%s, %d periods (%d lanes)'
+                               % (tag, R, 2 * R), iwave,
+                               (props, om, c_prev, cm, bx, top), slopes,
+                               group=True, record=R == 21)
+            if rec is not None:
+                out.append(rec)
+
+    # K2 on the spherical set: Rayleigh on its planes, Love on planes 0
+    # and 2 with the Love density plane
+    sprops, scm, sbx, stop, _ = ksw[1]
+    rho_l = ksw[2][4]
+    splanes = [sprops[k * NL:(k + 1) * NL] for k in range(4)]
+    periods = ev.specs[0].periods
+    for iwave, rho, counter, tag in (
+            (2, None, 'K2_sph_R', 'K2 warm root walker (spherical '
+             'Rayleigh)'),
+            (1, rho_l, 'K2_sph_L', 'K2 warm root walker (spherical Love, '
+             'its density plane)')):
+        lay = tuple(x.T.contiguous() for x in splanes[:3] + [
+            splanes[3] if rho is None else rho])
+        c_prev, slopes = warm_starts(torch, lay, periods, iwave)
+        rec = check_walker(torch, counter, tag, iwave,
+                           (sprops, swd.lane_frequencies(periods, 0, dev),
+                            c_prev, scm, sbx, stop), slopes, rho=rho,
+                           record=iwave == 1)
+        if rec is not None:
+            out.append(rec)
     return out
 
 
@@ -944,13 +1092,21 @@ def check_golden(torch, dev):
 
 
 def launch_counts():
-    """The launch counts of every kernel wrapper: K2's split by wave,
-    K3's and K3r's SV launches beside all their launches."""
+    """The launch counts of every kernel wrapper: K1's spherical kernel
+    beside all its launches, K2's split into disjoint arms (Rayleigh
+    and Love phase lanes, group lanes of each wave, spherical Love phase
+    lanes on the Love density plane), K3's and K3r's SV launches beside
+    all their launches."""
     from bayhunter_tpu_torch.ops import prep, resp, swd, walk
     w = walk.warm_roots_walk
+    group_r = w.group_launches - w.group_love_launches
     return dict(K1=prep.model_operands.launches,
-                K2_rayleigh=w.launches - w.love_launches,
-                K2_love=w.love_launches, K3=resp.resp.launches,
+                K1_sph=prep.model_operands.sph_launches,
+                K2_rayleigh=w.launches - w.love_launches - group_r,
+                K2_love=(w.love_launches - w.group_love_launches
+                         - w.sph_love_launches),
+                K2_group_R=group_r, K2_group_L=w.group_love_launches,
+                K2_sph_L=w.sph_love_launches, K3=resp.resp.launches,
                 K3_sv=resp.resp.sv_launches, K3r=resp.resp_q.launches,
                 K3r_sv=resp.resp_q.sv_launches,
                 K4=swd.secular4.launches, K5=swd.secular1.launches,
@@ -962,7 +1118,9 @@ def reset_counts():
     for w in (prep.model_operands, walk.warm_roots_walk, resp.resp,
               resp.resp_q, swd.secular4, swd.secular1, prep.rf_operands):
         w.launches = 0
-    walk.warm_roots_walk.love_launches = 0
+    prep.model_operands.sph_launches = 0
+    for name in ('love', 'group', 'group_love', 'sph_love'):
+        setattr(walk.warm_roots_walk, name + '_launches', 0)
     resp.resp.sv_launches = 0
     resp.resp_q.sv_launches = 0
 
@@ -970,12 +1128,13 @@ def reset_counts():
 RATES = {}      # proposals/s of each main path of this run
 
 
-def main_path(torch, dev, name, build, kernels):
-    """One configuration through the port's entry points, with the
-    launch counts set to 0 before and read after; fails unless each of
-    ``kernels`` launched and K3 launched once per RF target for each K1
-    launch of the steps.  Returns (launches at init, launches in all,
-    the number of RF targets, sampler, states, generator)."""
+def main_path(torch, dev, name, build, kernels, cycles=LATE_CYCLES):
+    """One configuration through the port's entry points, ``cycles``
+    late cycles timed, with the launch counts set to 0 before and read
+    after; fails unless each of ``kernels`` launched and K3 launched
+    once per RF target for each K1 launch of the steps.  Returns
+    (launches at init, launches in all, the number of RF targets,
+    sampler, states, generator)."""
     from bayhunter_tpu_torch.sampler.chain import dispatch_cycles
 
     reset_counts()
@@ -1005,7 +1164,7 @@ def main_path(torch, dev, name, build, kernels):
     log('%s early phase: %d iterations (+%d warm-up late) in %.2f s'
         % (name, n_early, 2 * clen, time.perf_counter() - t0))
     t0 = time.perf_counter()
-    count = LATE_CYCLES * clen
+    count = cycles * clen
     states = dispatch_cycles(sampler, states, it, count, gen)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -1034,6 +1193,13 @@ def main_path(torch, dev, name, build, kernels):
                                  name, launches['K3'] - at_init['K3'], n_rf))
     if not bool(torch.isfinite(states.logL).all()):
         raise AssertionError('non-finite logL')
+    if not (np.isfinite(stats['proposals_per_s'])
+            and stats['fwd_reject_pct'] < 100.0
+            and (stats['fwd_reject_dim_pct'] or 0.0) < 100.0):
+        raise AssertionError('%s: rate %s, reject shares %s / %s %%'
+                             % (name, stats['proposals_per_s'],
+                                stats['fwd_reject_pct'],
+                                stats['fwd_reject_dim_pct']))
     if not acc[2] > 0:
         raise AssertionError('no dimension proposal was accepted')
     for t, (y, roots, _) in enumerate(states.cache):
@@ -1090,6 +1256,85 @@ def path_a(torch, dev):
     return launches
 
 
+def check_public_forward(torch, dev):
+    """(f): the public forward on the card, launch counts set to 0
+    before and read after: ``SurfDisp.run_model`` of the tutorial truth
+    model against the four dispersion goldens (1e-4 phase, 5e-4 Rayleigh
+    group, 1e-3 Love group, tests/test_swd.py:35-36), ``SynRF.run_model``
+    against the P-RF (2e-4, tests/test_targets.py:37) and S-RF (1e-4,
+    :func:`check_golden`'s) goldens, all without a device argument; then
+    ``surfdisp_batch`` of the 10,240 grown models for Rayleigh group
+    velocity, spherical Rayleigh phase velocity and mode 2, host clock
+    per synchronised call (median of ``PUBLIC_CALLS`` after one), 64
+    models against the CPU twins.  Returns the launch counts."""
+    from bayhunter_tpu_torch import Targets, bench_config
+    from bayhunter_tpu_torch.ops import swd
+
+    reset_counts()
+    h = np.array([5., 23., 8., 0.])
+    vs = np.array([2.7, 3.6, 3.8, 4.4])
+    vp = vs * 1.73
+    rho = vp * 0.32 + 0.77
+    errs = {}
+    tols = {'rdispph': 1e-4, 'rdispgr': 5e-4, 'ldispph': 1e-4,
+            'ldispgr': 1e-3, 'prf': 2e-4, 'srf': 1e-4}
+    for ref, tol in tols.items():
+        obs = np.loadtxt(os.path.join(bench_config.FIXTURES,
+                                      'st3_%s.dat' % ref))
+        plugin = bench_config.TARGETS[ref](obs[:, 0], None).moddata.plugin
+        if plugin.device is not None:
+            raise AssertionError('%s plugin on %s' % (ref, plugin.device))
+        x, y = plugin.run_model(h, vp, vs, rho)
+        errs[ref] = float(np.abs(np.asarray(y) - obs[:, 1]).max())
+    log('public forward, SurfDisp / SynRF goldens, max |err| '
+        + json.dumps(errs) + ' (limits ' + json.dumps(tols) + ')')
+    if not all(errs[k] <= tols[k] for k in tols):
+        raise AssertionError('the plugins miss the golden data')
+
+    (h, vp, vs, rho), _, _ = grown_layers(torch, dev)
+    stats = {}
+    # mode 2 at the periods of tests/test_swd.py:131-132 (the first
+    # higher mode of these models leaves [cm, betmx] at long periods)
+    for case, kw, tol, periods in (
+            ('rayleigh_group', dict(igr=1), 1e-3, np.linspace(1, 41, 21)),
+            ('rayleigh_spherical', dict(iflsph=1), 1e-4,
+             np.linspace(1, 41, 21)),
+            ('rayleigh_mode2', dict(mode=2), 1e-4, np.linspace(1, 10, 10))):
+        periods = periods.astype(np.float32)
+        seconds = []
+        for _ in range(PUBLIC_CALLS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cg, err = swd.surfdisp_batch(h, vp, vs, rho, periods, **kw)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        pc, pe = swd.surfdisp_batch(*(x[:64].cpu() for x in (h, vp, vs,
+                                                             rho)),
+                                    periods, **kw)
+        kc, ke = cg[:64].cpu(), err[:64].cpu()
+        both = (kc > 0) & (pc > 0)
+        d = float((kc - pc).abs()[both].max()) if bool(both.any()) else 0.0
+        stats[case] = dict(
+            seconds_per_call=seconds,
+            models_per_s=C_MAIN / float(np.median(seconds[1:])),
+            failed=int(err.sum()), finite=bool(torch.isfinite(cg).all()),
+            max_err_vs_cpu_twins=d,
+            err_flags_differ=int((ke != pe).sum()))
+        if not (cg.shape == (C_MAIN, len(periods))
+                and stats[case]['finite']
+                and d <= tol and int((ke != pe).sum()) <= 2
+                and int(err.sum()) < C_MAIN):
+            raise AssertionError('surfdisp_batch (%s): %s' % (
+                case, json.dumps(stats[case])))
+    launches = launch_counts()
+    log('public forward, surfdisp_batch of %d models: %s, launches %s'
+        % (C_MAIN, json.dumps(stats), json.dumps(launches)))
+    if not (launches['K4'] and launches['K5'] and launches['K3']
+            and launches['K6']):
+        raise AssertionError('the public forward missed a kernel')
+    return launches
+
+
 def tutorial_targets(positive_errors=False):
     """(joint target, std of the drawn SWD noise) of the reference
     tutorial (``tutorial/tutorialhunt.py:32-40, 72-75``): the fixtures'
@@ -1112,7 +1357,7 @@ def tutorial_targets(positive_errors=False):
         xsw, ysw + sw_err,
         yerr=np.abs(sw_err) + 0.006 if positive_errors else sw_err)
     prf = Targets.PReceiverFunction(xrf, yrf + rf_err)
-    prf.set_modelparams(gauss=1., water=0.01, p=6.4)
+    prf.moddata.plugin.set_modelparams(gauss=1., water=0.01, p=6.4)
     return Targets.JointTarget([sw, prf]), float(np.std(sw_err))
 
 
@@ -1428,12 +1673,13 @@ def merged_length(intervals):
     return total
 
 
-def profile_steps(torch, sampler, states, gen):
-    """Where the late steps' time goes: host-clock ms per step of each
-    move (draws included, synchronised), then ``PROFILE_CYCLES`` late
-    cycles under torch.profiler — wall time, the device's busy time
-    (union of its kernel and copy intervals) and idle share, and each
-    kernel's device time."""
+def profile_steps(torch, sampler, states, gen, config='tutorial'):
+    """Where the late steps' time goes in configuration ``config``:
+    host-clock ms per step of each move (draws included,
+    synchronised), then ``PROFILE_CYCLES`` late cycles under
+    torch.profiler — wall time, the device's busy time (union of its
+    kernel and copy intervals) and idle share, and each kernel's device
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from bayhunter_tpu_torch.sampler import chain
@@ -1471,7 +1717,8 @@ def profile_steps(torch, sampler, states, gen):
                                         if name in e.name)
     iters = PROFILE_CYCLES * len(sampler.late_order)
     stats = dict(
-        step_ms=step_ms, profiled_iters=iters, wall_ms=wall_ms,
+        config=config, step_ms=step_ms, profiled_iters=iters,
+        wall_ms=wall_ms,
         device_busy_ms=busy_ms, device_idle_pct=100.0 * (1.0 - busy_ms
                                                           / wall_ms),
         kernel_device_ms=kernel_ms,
@@ -1492,7 +1739,8 @@ def profile_cold_inits(torch, dev):
     from bayhunter_tpu_torch import bench_config
 
     stats = {}
-    for name in ('tutorial', 'tutorial_rl_prf', 'tutorial_prf_srf'):
+    for name in ('tutorial', 'tutorial_rl_prf', 'tutorial_prf_srf',
+                 'tutorial_six', 'tutorial_six_sph'):
         sampler, _ = bench_config.build_config(name, dev, iters=ITERS, nl=NL)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1550,7 +1798,11 @@ def main():
     phase('ragged')
     check_golden(torch, dev)
     phase('golden')
-    by_path = {}
+    # (f): the public forward (K4, K5, K6, K3 as a warm K3 at the
+    # Gauss-cut lanes; no cold init)
+    by_path = {'public_forward': (dict.fromkeys(launch_counts(), 0),
+                                  check_public_forward(torch, dev), 0)}
+    phase('public forward')
     init_a, all_a, n_rf, sampler, states, gen = main_path(
         torch, dev, 'tutorial', bench_config.build,
         ('K1', 'K2_rayleigh', 'K3', 'K4', 'K6'))
@@ -1567,6 +1819,23 @@ def main():
         torch, dev, 'tutorial_prf_srf', bench_config.build_prf_srf,
         ('K1', 'K2_rayleigh', 'K3', 'K3_sv', 'K4', 'K6'))
     by_path['tutorial_prf_srf'] = (init_c, all_c, n_rf)
+    # (g) the six target kinds, flat and spherical
+    six = ('K1', 'K2_rayleigh', 'K2_group_R', 'K2_group_L', 'K3', 'K3_sv',
+           'K4', 'K5', 'K6')
+    for name, build, kernels_six in (
+            ('tutorial_six', bench_config.build_six,
+             six + ('K2_love',)),
+            ('tutorial_six_sph', bench_config.build_six_sph,
+             six + ('K1_sph', 'K2_sph_L'))):
+        init_s, all_s, n_rf, sampler, states, gen = main_path(
+            torch, dev, name, build, kernels_six, SIX_LATE_CYCLES)
+        by_path[name] = (init_s, all_s, n_rf)
+        phase(name)
+        if name == 'tutorial_six':
+            six_run = (sampler, states, gen)
+        del sampler, states, gen
+    profile_steps(torch, *six_run, config='tutorial_six')
+    del six_run
     # the inversion as users run it: (b), (c), (d)
     tmp = tempfile.mkdtemp(prefix='bh_chip_smoke_')
     try:
@@ -1590,7 +1859,8 @@ def main():
     rules = dict(
         K1=lambda i, t, n, m=False: t['K1'] if n == 1 and not m else 0,
         K1_mantle=lambda i, t, n, m=False: t['K1'] if m else 0,
-        K1_2rf=lambda i, t, n, m=False: t['K1'] if n == 2 else 0,
+        K1_2rf=lambda i, t, n, m=False: (t['K1'] - t['K1_sph']
+                                         if n == 2 else 0),
         K3_warm=lambda i, t, n, m=False: (t['K3'] - t['K3_sv'])
         - (i['K3'] - i['K3_sv']),
         K3_cold=lambda i, t, n, m=False: i['K3'] - i['K3_sv'],

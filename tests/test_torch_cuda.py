@@ -21,8 +21,15 @@ into NaN-filled memory; K1's mantle arm bit for bit (C = 1, 37,
 10,237; the mantle threshold inside, above and below the chains'
 slots) into NaN-filled memory; that K1's, K2's, K3's, K3r's, K4's, K5's
 and K6's entry points refuse a launch geometry with too little shared
-memory; and a 64-chain ``MCMC_Optimizer`` run on the card that writes
-the ``.npy`` contract.
+memory; a 64-chain ``MCMC_Optimizer`` run on the card that writes
+the ``.npy`` contract; and the dispersion arms bit for bit into
+NaN-filled memory (C = 1, 37, 10,237): K1's spherical kernel with the
+flat set, the spherical set and the Love density plane in five
+combinations, with 0, 1 and 2 RF targets, the velocity-zone limits
+and the mantle prior; K2's group arm at 42, 120 and 130 lanes in every
+move class; K2 on the spherical set (Love on its density plane), phase
+and group lanes; and the public forward (``surfdisp``, ``SurfDisp``,
+``SynRF``) without a device argument against the tutorial goldens.
 
 Needs an NVIDIA GPU and nvcc (marker ``cuda``); skipped elsewhere.  On
 a machine with a card:
@@ -632,3 +639,167 @@ def test_optimizer_writes_the_contract_on_the_card(dev, tmp_path):
                                        'K6'))
     assert chip_smoke.check_contract(opt) == {'p1': 10, 'p2': 10}
     assert opt.final_states.vpvs.device.type == 'cuda'
+
+
+# K1's dispersion sets: (iwave, flsph) per dispersion target — the
+# spherical set alone, beside the flat set, with the spherical Love
+# density plane, and the six-target joint's four of each flattening
+SWD_SPECS = {'sph': ((2, 1),), 'flat_sph': ((2, 0), (2, 1)),
+             'sph_love': ((2, 1), (1, 1)),
+             'six_sph': ((2, 1), (2, 1), (1, 1), (1, 1)),
+             'all': ((2, 0), (1, 0), (2, 1), (1, 1))}
+
+
+def _spherical_bitwise(dev, nuclei, priors, rf_specs, swd_specs):
+    """K1 with ``swd_specs`` against its twin bit for bit, into NaN-filled
+    memory: validity, each target's (props, cm, bx, top, rho) and the RF
+    operand sets.  Returns the kernel's per-target operands."""
+    _poison(dev)
+    before = prep.model_operands.sph_launches
+    kv, ksw, krf = prep.model_operands(*nuclei, priors, rf_specs,
+                                       swd_specs)
+    assert prep.model_operands.sph_launches == before + 1
+    pv, psw, prf = prep.model_operands_plain(*nuclei, priors, rf_specs,
+                                             swd_specs)
+    assert torch.equal(kv, pv)
+    assert len(ksw) == len(psw) == len(swd_specs)
+    for kt, pt, (iwave, flsph) in zip(ksw, psw, swd_specs):
+        assert (kt[4] is None) == (pt[4] is None) == (
+            not (iwave == 1 and flsph == 1))
+        for a, b in zip(kt, pt):
+            if a is not None:
+                assert a.shape == b.shape and torch.equal(a, b)
+    for a, b in zip(sum(krf, ()), sum(prf, ())):
+        assert torch.equal(a, b)
+    return ksw
+
+
+@pytest.mark.parametrize('sets', sorted(SWD_SPECS))
+@pytest.mark.parametrize('C', [1, 37, 10237])
+def test_model_operands_spherical_bitwise(dev, C, sets):
+    # K1's spherical arm (prep_sph_kernel) with 0, 1 and 2 RF targets,
+    # with the velocity-zone limits and the mantle prior
+    nuclei = _nuclei(dev, C)
+    specs = SWD_SPECS[sets]
+    for priors, rf_specs in ((PRIORS, ()), (PRIORS_ZONES, RF_P),
+                             (PRIORS._replace(mantle=(4.1, 1.8)),
+                              RF_SPECS4[:2])):
+        ksw = _spherical_bitwise(dev, nuclei, priors, rf_specs, specs)
+    # the flattening moved the spherical set off the flat one, and the
+    # Love density plane off the Rayleigh one
+    flat = prep.model_operands_plain(*nuclei, PRIORS, ())[1]
+    for (props, _, _, _, rho), (iwave, flsph) in zip(ksw, specs):
+        if flsph and C > 1:
+            assert not torch.equal(props, flat[0])
+            if rho is not None:
+                assert not torch.equal(rho, props[3 * NL:])
+
+
+def _group_starts(planes, periods, iwave):
+    """(omegas (2R,), c_prev, slopes (C, 2R)) of a group solve: the cold
+    group roots moved off the DDC grid where found, mid-range where
+    not."""
+    layers = tuple(x.T.contiguous() for x in planes)
+    _, _, roots, slopes = swd.surfdisp_roots_cold(*layers, periods, iwave,
+                                                  igr=1)
+    cm, bx = swd.lower_bound(planes[1], planes[2], dim=0)
+    mid = 0.5 * (cm + bx)[:, None].expand_as(roots)
+    c_prev = torch.where(slopes != 0.0, roots + 0.0013, mid).contiguous()
+    om = swd.lane_frequencies(periods, 1, planes[0].device)
+    return om, c_prev, slopes, cm, bx
+
+
+@pytest.mark.parametrize('iwave', [2, 1], ids=['rayleigh', 'love'])
+@pytest.mark.parametrize('R', [21, 60, 65])
+@pytest.mark.parametrize('C', [1, 37, 10237])
+def test_walker_group_ragged_shapes_bitwise(dev, C, R, iwave):
+    # K2's group arm: 2R lanes (42, 120 and 130, above a block's 128
+    # threads) with 12 bisections in every move class
+    planes, top = _ragged_planes(dev, C)
+    props = torch.cat(planes).contiguous()
+    periods = np.linspace(1.0, 60.0, R).astype(np.float32)
+    om, c_prev, slopes, cm, bx = _group_starts(planes, periods, iwave)
+    assert c_prev.shape == (C, 2 * R)
+    args = (props, om, c_prev, cm, bx, top)
+    for st in (swd.WARM_VS, swd.WARM_Z, swd.WARM_DIM):
+        kw = dict(ring_k=st['ring'], trips=swd.WARM_CAP,
+                  nbisect=swd.GROUP_NBISECT,
+                  newton_iters=st['newton_iters'],
+                  newton_maxshift=swd.NEWTON_MAXSHIFT, iwave=iwave,
+                  slope_prev=slopes if st['cached_slope'] else None)
+        before = walk.warm_roots_walk.group_launches
+        _poison(dev)
+        kc, kf, ks = walk.warm_roots_walk(*args, group=True, **kw)
+        assert walk.warm_roots_walk.group_launches == before + 1
+        pc, pf, ps = walk.warm_roots_walk_plain(*args, **kw)
+        assert torch.equal(kf, pf)
+        assert torch.equal(kc, pc)
+        assert torch.equal(ks, ps)
+
+
+@pytest.mark.parametrize('C', [1, 37, 10237])
+def test_walker_spherical_bitwise(dev, C):
+    # K2 on K1's spherical set: Rayleigh on its planes, Love on planes 0
+    # and 2 with the Love density plane, phase and group lanes
+    nuclei = _nuclei(dev, C)
+    _, ((props, cm, bx, top, _), (_, _, _, _, rho_l)), _ = \
+        prep.model_operands(*nuclei, PRIORS, (), ((2, 1), (1, 1)))
+    periods = np.linspace(1.0, 41.0, 21).astype(np.float32)
+    layers = [props[k * NL:(k + 1) * NL] for k in range(4)]
+    for iwave, rho in ((2, None), (1, rho_l)):
+        planes = layers[:3] + [layers[3] if rho is None else rho]
+        for igr in (0, 1):
+            _, _, roots, slopes = swd.surfdisp_roots_cold(
+                *(x.T.contiguous() for x in planes), periods, iwave,
+                igr=igr)
+            mid = 0.5 * (cm + bx)[:, None].expand_as(roots)
+            c_prev = torch.where(slopes != 0.0, roots + 0.0013,
+                                 mid).contiguous()
+            args = (props, swd.lane_frequencies(periods, igr, dev), c_prev,
+                    cm, bx, top)
+            for st in (swd.WARM_VS, swd.WARM_Z, swd.WARM_DIM):
+                kw = dict(ring_k=st['ring'], trips=swd.WARM_CAP,
+                          nbisect=swd.GROUP_NBISECT if igr
+                          else st['nbisect'],
+                          newton_iters=st['newton_iters'],
+                          newton_maxshift=swd.NEWTON_MAXSHIFT, iwave=iwave,
+                          slope_prev=slopes if st['cached_slope'] else None,
+                          rho=rho)
+                _poison(dev)
+                kc, kf, ks = walk.warm_roots_walk(*args, **kw)
+                pc, pf, ps = walk.warm_roots_walk_plain(*args, **kw)
+                assert torch.equal(kf, pf)
+                assert torch.equal(kc, pc)
+                assert torch.equal(ks, ps)
+                if C > 1:
+                    assert float(kf.float().mean()) > 0.5
+
+
+def test_public_forward_defaults_to_the_card(dev):
+    # surfdisp, SurfDisp and SynRF without a device run on the card
+    # (K4, K5, K6, K3), and match the tutorial goldens
+    import os
+    from bayhunter_tpu_torch import Targets
+    fx = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      'fixtures')
+    h = np.array([5., 23., 8., 0.])
+    vs = np.array([2.7, 3.6, 3.8, 4.4])
+    vp = vs * 1.73
+    rho = vp * 0.32 + 0.77
+    cg, err = swd.surfdisp(h, vp, vs, rho, np.linspace(1, 41, 21), igr=1)
+    assert cg.device.type == 'cuda' and not bool(err)
+    for cls, ref, tol in (
+            (Targets.RayleighDispersionPhase, 'rdispph', 1e-4),
+            (Targets.RayleighDispersionGroup, 'rdispgr', 5e-4),
+            (Targets.LoveDispersionPhase, 'ldispph', 1e-4),
+            (Targets.LoveDispersionGroup, 'ldispgr', 1e-3),
+            (Targets.PReceiverFunction, 'prf', 2e-4),
+            (Targets.SReceiverFunction, 'srf', 1e-4)):
+        obs = np.loadtxt(os.path.join(fx, 'st3_%s.dat' % ref))
+        before = (swd.secular4.launches + swd.secular1.launches
+                  + resp.resp.launches)
+        x, y = cls(obs[:, 0], None).moddata.plugin.run_model(h, vp, vs,
+                                                             rho)
+        assert (swd.secular4.launches + swd.secular1.launches
+                + resp.resp.launches) > before
+        assert float(np.abs(y - obs[:, 1]).max()) <= tol, ref

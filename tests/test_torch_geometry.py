@@ -193,7 +193,8 @@ def test_prep_structs_agree_with_ctypes():
     assert re.search(r'#define RF_MAX (\d+)', src).group(1) == str(
         _ext.RF_MAX)
     for struct, cls in (('RfSpecs', _ext.RfSpecs),
-                        ('PriorCfg', _ext.PriorCfg)):
+                        ('PriorCfg', _ext.PriorCfg),
+                        ('SwdSets', _ext.SwdSets)):
         want = []
         for name, ctype in cls._fields_:
             length = getattr(ctype, '_length_', None)
@@ -324,3 +325,116 @@ def test_secular_shared_bytes_agree_with_the_kernel_and_opt_in():
     assert swd.geometry(2051, 60, 1, 64, 2).smem <= lanes.SMEM_MAX
     with pytest.raises(ValueError):
         swd.geometry(10, 200, 64, 200, 2)
+
+
+# ----------------------------------------------------------------------
+# the dispersion arms: group lanes in K2, the reference's 100-slot and
+# 60-period cap in K4/K5, K1's spherical kernel
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize('iwave', [2, 1])
+@pytest.mark.parametrize('lanes_', [42, 120, 130])
+@pytest.mark.parametrize('C', [1, 37, 10237])
+def test_walker_group_lanes_covered_once(C, lanes_, iwave):
+    # a group target's 2P lanes: 21, 60 and 65 periods; past the block's
+    # 128 threads a block holds one chain and its lanes take two rounds
+    geo = walk.geometry(C, lanes_, NL, iwave)
+    assert geo.tile == max(1, walk.MAX_THREADS // lanes_)
+    assert geo.smem <= lanes.SMEM_MAX
+    top = np.random.RandomState(C + lanes_).randint(-1, NL - 1, C)
+    lm = walk.lane_map(geo, C, lanes_, top)
+    assert lm.shape[1] == -(-geo.tile * lanes_ // geo.threads)
+    assert _covered_once(lm, C * lanes_)
+    for b in (0, geo.blocks - 1):
+        lane = lm[b].reshape(-1)
+        assert set(lane[lane >= 0] // lanes_) == set(
+            range(b * geo.tile, min(C, (b + 1) * geo.tile)))
+
+
+@pytest.mark.parametrize('K', [1, 17, 64])
+def test_secular_fits_the_reference_cap(K):
+    # 100 layer slots (surfdisp96.f:60) and 120 lanes (60 group periods):
+    # K4's 36,520 floats, 146 KB a chain, one chain a tile, above the
+    # 48 KB default and under the 227 KB opt-in; K5's 12,520
+    assert swd.chain_floats(100, 120, 2) == 36520
+    assert swd.chain_floats(100, 120, 1) == 12520
+    for iwave in (2, 1):
+        geo = swd.geometry(10240, 120, K, 100, iwave)
+        assert geo.tile >= 1 and geo.tile * geo.blocks >= 10240
+        assert geo.tile == 1 or iwave == 1
+        assert geo.smem == 4 * geo.tile * (swd.chain_floats(100, 120, iwave)
+                                           + 1)
+        assert lanes.SMEM_DEFAULT < geo.smem <= lanes.SMEM_MAX
+        m = swd.store_map(swd.geometry(3, 120, K, 100, iwave), 3, 120, K)
+        assert np.array_equal(np.bincount(m[m >= 0], minlength=3 * 120 * K),
+                              np.ones(3 * 120 * K, np.int64))
+
+
+SETS = {'flat': (1, 0, 0), 'sph': (0, 1, 0), 'sph_love': (0, 1, 1),
+        'all': (1, 1, 1), 'flat_sph': (1, 1, 0)}
+
+
+@pytest.mark.parametrize('sets', sorted(SETS))
+@pytest.mark.parametrize('n_rf', [0, 2])
+@pytest.mark.parametrize('nl', [2, 21, 64])
+@pytest.mark.parametrize('C', [1, 37, 2048, 10237])
+def test_spherical_model_operand_stores_once(C, nl, n_rf, sets):
+    sets = SETS[sets]
+    flat, sph, love = sets
+    geo = prep.geometry(C, nl, n_rf, True, bool(sph))
+    assert geo.smem == 4 * prep.tile_floats(nl, True, bool(sph)) * geo.tile
+    assert geo.smem <= lanes.SMEM_MAX and geo.tile in prep.TILES
+    lo = prep.outputs(nl, ((P_SKM, rf.P_WAVE),) * n_rf, sets)
+    rows = {'valid': 1}
+    if flat or not sph:
+        rows.update(props=4 * nl, swd=3)
+    if sph:
+        rows.update(sph_props=4 * nl, sph_swd=3)
+    if love:
+        rows.update(love_rho=nl)
+    rows.update({'coefs%d' % s: (nl - 1) * 32 for s in range(n_rf)})
+    rows.update({'pack%d' % s: rf.pack_offsets(nl)['rows']
+                 for s in range(n_rf)})
+    assert lo.rows == sum(v for k, v in rows.items() if k != 'valid')
+    for b in sorted({0, geo.blocks // 2, geo.blocks - 1}):
+        stores = prep.item_stores(geo, C, nl, n_rf, b, True, sets)
+        assert sorted(stores) == sorted(rows)
+        chains = np.arange(b * geo.tile, min(C, (b + 1) * geo.tile))
+        for name, idx in stores.items():
+            want = (np.arange(rows[name])[:, None] * C + chains).reshape(-1)
+            assert np.array_equal(np.sort(idx), np.sort(want)), name
+
+
+@pytest.mark.parametrize('nl', [2, NL])
+def test_spherical_launch_constants(nl):
+    # the output rows: the flat set (when written), the spherical set,
+    # the Love plane, then the RF sets at the rows RfSpecs names; the
+    # spherical kernel's shared floats agree with csrc/prep.cu
+    specs = ((P_SKM, rf.P_WAVE), (5.5 * rf.DEG_PER_KM, rf.SV_WAVE))
+    for swd_specs in (None, (), ((2, 0),), ((2, 1),), ((2, 0), (1, 1)),
+                      ((2, 1), (1, 1), (2, 0), (1, 0))):
+        sets = prep.swd_sets(swd_specs)
+        lo = prep.cached_outputs(nl, specs, sets)
+        fresh = prep.outputs(nl, specs, sets)
+        assert lo[2:] == fresh[2:]
+        assert bytes(prep.swd_struct(lo.swd)) == bytes(_ext.SwdSets(*lo.swd))
+        flat, sph, love, sph_row, love_row = lo.swd
+        assert flat == int(not sph or any(f == 0 for _, f in swd_specs))
+        assert sph == int(any(f == 1 for _, f in swd_specs or ()))
+        assert love == int((1, 1) in (swd_specs or ()))
+        starts = np.cumsum((0,) + lo.sizes)
+        nswd = 2 * (flat + sph) + love
+        if sph:
+            assert sph_row == starts[2 * flat]
+            assert lo.sizes[2 * flat:2 * flat + 2] == (4 * nl, 3)
+        if love:
+            assert love_row == starts[nswd - 1] and lo.sizes[nswd - 1] == nl
+        assert list(starts[nswd:-1:2]) == list(lo.specs.coefs)[:2]
+        assert list(starts[nswd + 1::2]) == list(lo.specs.pack)[:2]
+    with open(os.path.join(CSRC, 'prep.cu')) as f:
+        src = f.read()
+    body = re.search(r'int prep_sph_floats\(int nl\) \{ return (.*?); \}',
+                     src).group(1)
+    for n in (2, 21, 64):
+        assert eval(body, {'nl': n}) == prep.tile_floats(n, True, True)
+    assert 'prep_sph_kernel<true> : prep_sph_kernel<false>' in src

@@ -1,6 +1,8 @@
-"""The PyTorch port imports without JAX, its kernel wrappers run their
-plain twins — launching nothing — for CPU tensors, and an inversion
-through ``MCMC_Optimizer`` on the CPU imports nothing of JAX either."""
+"""The PyTorch port imports without JAX (the forward plugins included),
+its kernel wrappers run their plain twins — launching nothing — for CPU
+tensors, the six-target spherical configuration and ``SynthObs``'s
+dispersion data run on the CPU, and an inversion through
+``MCMC_Optimizer`` on the CPU imports nothing of JAX either."""
 
 import os
 import subprocess
@@ -18,19 +20,26 @@ from bayhunter_tpu_torch.ops import _ext, prep, resp, rf, walk, swd
 from bayhunter_tpu_torch.sampler.chain import dispatch_cycles
 from bayhunter_tpu_torch import (config, diagnostics, optimizer, synthobs,
                                  utils, MCMC_Optimizer, Targets)
+from bayhunter_tpu_torch.forward import SurfDisp, SynRF
+from bayhunter_tpu_torch.forward import rf_plugin, swd_plugin
 assert 'jax' not in sys.modules, 'jax imported'
 assert 'bayhunter_tpu' not in sys.modules, 'the JAX package imported'
 assert 'triton' not in sys.modules, 'triton imported'
 
 for build in (bench_config.build, bench_config.build_rl_prf,
-              bench_config.build_prf_srf):
+              bench_config.build_prf_srf, bench_config.build_six_sph):
     sampler, ev = build('cpu', iters=20)
     states, gen = sampler.init_states_host(0, 4)
     states = dispatch_cycles(sampler, states, -20, 5, gen)
     states = dispatch_cycles(sampler, states, -15, 5, gen)
     assert int(states.proposed[:, 2].sum()) > 0, 'no dimension step ran'
     assert bool(torch.isfinite(states.logL).all())
-assert len(states.cache) == 3
+assert len(states.cache) == 6
+data = synthobs.SynthObs.return_swddata([5., 23., 0.], [2.7, 3.6, 4.4],
+                                        x=np.linspace(1, 41, 5),
+                                        device='cpu')
+assert sorted(data) == ['ldispgr', 'ldispph', 'rdispgr', 'rdispph']
+assert all(np.all(np.isfinite(v)) for v in data.values())
 layers = [np.tile(np.array([[3.0, 0.0, 0.0]], np.float32), (2, 1))]
 layers += [np.tile(np.array([[v, 1.2 * v, 1.2 * v]], np.float32), (2, 1))
            for v in (5.0, 2.9, 2.4)]
