@@ -17,19 +17,39 @@ Device and dtype policy:
     kernel wrapper runs the twin only for tensors on the CPU and
     launches the kernel (or raises) for CUDA tensors.
 
-Importing the package needs neither jax, triton nor a CUDA toolchain:
-the kernels are compiled with ``nvcc`` at their first launch
-(``ops/_ext.py``).  ``MCMC_Optimizer`` (``optimizer.py``), the entry
-point of an inversion, is imported on first use.
+Importing the package needs neither jax, triton, matplotlib nor a CUDA
+toolchain: the kernels are compiled with ``nvcc`` at their first launch
+(``ops/_ext.py``).  The reference's public names (``_PARITY_EXPORTS``,
+as the JAX package's ``__init__`` lists them) are imported on first
+use: ``MCMC_Optimizer`` (``optimizer.py``), the entry point of an
+inversion, ``Targets``, ``SynthObs``, ``utils`` and ``diagnostics``.
 """
+
+import importlib
 
 import torch
 
 DTYPE = torch.float32
 
+# name -> (module, attribute); attribute None: the module itself
+_PARITY_EXPORTS = {
+    'Targets': ('bayhunter_tpu_torch.Targets', None),
+    'SynthObs': ('bayhunter_tpu_torch.synthobs', 'SynthObs'),
+    'MCMC_Optimizer': ('bayhunter_tpu_torch.optimizer', 'MCMC_Optimizer'),
+    'utils': ('bayhunter_tpu_torch.utils', None),
+    'diagnostics': ('bayhunter_tpu_torch.diagnostics', None),
+}
+# the JAX package's other exports, whose modules are not ported yet
+_NOT_PORTED = ('Model', 'ModelMatrix', 'SingleChain', 'PlotFromStorage',
+               'BayWatcher')
+
 
 def __getattr__(name):
-    if name == 'MCMC_Optimizer':
-        from bayhunter_tpu_torch.optimizer import MCMC_Optimizer
-        return MCMC_Optimizer
+    if name in _PARITY_EXPORTS:
+        modname, attr = _PARITY_EXPORTS[name]
+        mod = importlib.import_module(modname)
+        return mod if attr is None else getattr(mod, attr)
+    if name in _NOT_PORTED:
+        raise AttributeError('%s.%s is not ported yet (the JAX package '
+                             'bayhunter_tpu has it)' % (__name__, name))
     raise AttributeError('module %r has no attribute %r' % (__name__, name))

@@ -13,7 +13,9 @@
 // (_prep_kernel, body _rf_rows :63, driven by rf_operands_t :436): the
 // same RF rows (flatten_slot and rf_item below, shared with K1) from
 // (NL, C) layer planes, for the cold evaluation and the batched RF
-// forward.  Plain twin: ops/prep.py rf_operands_plain.
+// forward, with the flattening (rf_prep_kernel<true>) or on the raw
+// layers (rf_prep_kernel<false>, _rf_rows with flattening=False :70).
+// Plain twin: ops/prep.py rf_operands_plain.
 //
 // From the depth-sorted (NL, C) nucleus planes K1 computes the layered
 // model, the prior validity, the walker planes [d; a; b; rho], cm (0.95
@@ -565,7 +567,11 @@ prep_sph_kernel(const float *__restrict__ vs_t,
                              lay, tile, valid_out, out);
 }
 
-// K6: the RF operands alone, from (NL, C) layer planes.
+// K6: the RF operands alone, from (NL, C) layer planes; FLAT: with the
+// rfmini flattening (pallas_prep._rf_rows ``flattening``), else the raw
+// layers go straight into the tables, the scalars and the pack (the
+// unflattened arm runs neither the running depths nor the logs).
+template <bool FLAT>
 __global__ void __launch_bounds__(PREP_MAX_THREADS)
 rf_prep_kernel(const float *__restrict__ h_in,
                const float *__restrict__ vp_in,
@@ -592,10 +598,12 @@ rf_prep_kernel(const float *__restrict__ h_in,
         f.rho[s] = __ldg(rho_in + g);
     }
     __syncthreads();
-    for (int c = tid; c < tc; c += T) running_depths(nl, c, f, s_zt);
-    __syncthreads();
-    flatten_tile(nl, tc, f, s_zt);
-    __syncthreads();
+    if constexpr (FLAT) {
+        for (int c = tid; c < tc; c += T) running_depths(nl, c, f, s_zt);
+        __syncthreads();
+        flatten_tile(nl, tc, f, s_zt);
+        __syncthreads();
+    }
 
     const int items = rf_items(nl, tc, lay);
     for (int k = tid; k < items; k += T)
@@ -650,19 +658,20 @@ extern "C" int bh_prep(const float *vs_t, const float *z_t, const int *n,
 
 extern "C" int bh_rf_prep(const float *h, const float *vp, const float *vs,
                           const float *rho, int nl, int C, float p, int wave,
-                          PackLayout lay, int threads, int tile, int smem,
-                          float *out, cudaStream_t stream) {
+                          int flattening, PackLayout lay, int threads,
+                          int tile, int smem, float *out,
+                          cudaStream_t stream) {
     if (wave != 0 && wave != 1) return (int)cudaErrorInvalidValue;
     if (int e = check_geometry(nl, threads, tile, smem, rf_prep_floats(nl)))
         return e;
     if (C == 0) return 0;
+    auto kernel = flattening ? rf_prep_kernel<true> : rf_prep_kernel<false>;
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
-            rf_prep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            smem);
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (e != cudaSuccess) return (int)e;
     }
-    rf_prep_kernel<<<(C + tile - 1) / tile, threads, smem, stream>>>(
+    kernel<<<(C + tile - 1) / tile, threads, smem, stream>>>(
         h, vp, vs, rho, nl, C, p, wave, lay, tile, out);
     return (int)cudaGetLastError();
 }

@@ -23,6 +23,14 @@
 // vc = v (1 + ln(w/wref)/(pi Q)) + i v/(2Q) from its own Q and inverts
 // vc^2 (pallas_rf.py:382-388), and raises the chain's skip depth to the
 // deepest slot with a Qp or Qs contrast below it (pallas_rf.py:804-811).
+// Both take the options bitmask of the JAX package's XLA ``synrf``
+// (bayhunter_tpu/ops/rf.py:48-57, :327-466) as a template parameter:
+// SUPPRESS_MULTIPLES (the direct transmission without reverberations)
+// and WITHOUT_ANELASTICITY (real velocities in the phase terms); the
+// TPU kernel has no options, so these arms' twins are the same plain
+// functions with the same flag.  A suppressed slot below the skip depth
+// is an identity (tu = I, e = I) as in the full recursion, so the pack's
+// depth stays valid in every arm.
 //
 // Bound on the card: the float32 instruction stream — per layer and
 // lane two complex square roots, two complex exponentials, ~450 flops
@@ -144,31 +152,43 @@ __device__ __forceinline__ m4 columns(cf e1, cf e2, const m4 &q) {
 // 0..depth of a staged chain: ``coef`` its coefficient rows (layer i at
 // i * 32: rd, td, ru, tu, 8 floats each), ``sc`` its scalars;
 // phase_at(i, e1, e2) gives layer i's P and S phase terms.  Writes the
-// lane's (cz, cr) for incidence WAVE at ``out``.
-template <int WAVE, class Phase>
+// lane's (cz, cr) for incidence WAVE at ``out``.  SUPPRESS: the direct
+// downward transmission g = prod_i e_i tu_{i+1}, no reverberations
+// (rf.py step_suppress, :445-455).
+template <int WAVE, bool SUPPRESS, class Phase>
 __device__ __forceinline__ void transmit(
         const float *coef, const float *sc, float w, int depth,
         const Phase &phase_at, size_t out, float *__restrict__ czr,
         float *__restrict__ czi, float *__restrict__ crr,
         float *__restrict__ cri) {
-    // layer 0: free surface on top
     cf e1, e2;
     phase_at(0, e1, e2);
-    m4 nb = sandwich(m4_of(sc + SC_NT), e1, e2);
-    m4 q = m4mul(m4inv_of_eye_minus(m4mul(lds_m4(coef), nb)),
-                 lds_m4(coef + 24));
-    m4 g = columns(e1, e2, q);
-    m4 x = m4mul(nb, q);
-    for (int i = 1; i <= depth; ++i) {
-        phase_at(i, e1, e2);
-        const float *prev = coef + (i - 1) * 32;   // ru, td of layer i - 1
-        const float *cur = coef + i * 32;
-        nb = sandwich(m4add(lds_m4(prev + 16), m4mul(lds_m4(prev + 8), x)),
-                      e1, e2);
-        q = m4mul(m4inv_of_eye_minus(m4mul(lds_m4(cur), nb)),
-                  lds_m4(cur + 24));
-        x = m4mul(nb, q);
-        g = m4mul(g, columns(e1, e2, q));
+    m4 g;
+    if constexpr (SUPPRESS) {
+        g = columns(e1, e2, lds_m4(coef + 24));
+        for (int i = 1; i <= depth; ++i) {
+            phase_at(i, e1, e2);
+            g = m4mul(g, columns(e1, e2, lds_m4(coef + i * 32 + 24)));
+        }
+    } else {
+        // layer 0: free surface on top
+        m4 nb = sandwich(m4_of(sc + SC_NT), e1, e2);
+        m4 q = m4mul(m4inv_of_eye_minus(m4mul(lds_m4(coef), nb)),
+                     lds_m4(coef + 24));
+        g = columns(e1, e2, q);
+        m4 x = m4mul(nb, q);
+        for (int i = 1; i <= depth; ++i) {
+            phase_at(i, e1, e2);
+            const float *prev = coef + (i - 1) * 32;  // ru, td of i - 1
+            const float *cur = coef + i * 32;
+            nb = sandwich(m4add(lds_m4(prev + 16),
+                                m4mul(lds_m4(prev + 8), x)),
+                          e1, e2);
+            q = m4mul(m4inv_of_eye_minus(m4mul(lds_m4(cur), nb)),
+                      lds_m4(cur + 24));
+            x = m4mul(nb, q);
+            g = m4mul(g, columns(e1, e2, q));
+        }
     }
 
     // column WAVE of 2 hmat g: rows 0 (R) and 1 (Z)
@@ -188,11 +208,18 @@ __device__ __forceinline__ void transmit(
 // Shared-memory record of chain cc of the tile, ``cs`` floats from
 // sm + cc * cs (ops/resp.py geometry mirrors it):
 //   [0, (nl-1)*32)             coefficient rows of layers 0..depth
-//   then NK planes of nl       per-layer terms: h, then K3: 1/vp^2,
-//                              1/vs^2; K3r: vp, vs, pi qp, vp (0.5/qp),
-//                              pi qs, vs (0.5/qs)
+//   then NK planes of nl       per-layer terms: h, then K3 and every
+//                              elastic arm: 1/vp^2, 1/vs^2; K3r: vp, vs,
+//                              pi qp, vp (0.5/qp), pi qs, vs (0.5/qs)
 //   then N_SC scalars          p, p^2, t0, depth (an int), hmat, nt
-template <int WAVE, bool QMODE>
+// OPT is the options bitmask (rf.py SUPPRESS_MULTIPLES = 1,
+// WITHOUT_ANELASTICITY = 2): the suppress arm runs the direct
+// transmission (transmit), the elastic arm takes real velocities in the
+// phase terms, x = 1/v^2 - p^2 with a zero imaginary part and the
+// vertical slowness sqrt(x) still complex (rf.py:372-379), in place of
+// K3's uniform Q and of K3r's per-layer Q (whose contrasts still raise
+// the skip depth).
+template <int WAVE, bool QMODE, int OPT>
 __global__ void __launch_bounds__(RESP_MAX_THREADS, RESP_MIN_BLOCKS)
 resp_kernel(const float *__restrict__ coefs, const float *__restrict__ pack,
             const float *__restrict__ qp, const float *__restrict__ qs,
@@ -201,6 +228,8 @@ resp_kernel(const float *__restrict__ coefs, const float *__restrict__ pack,
             float *__restrict__ czi, float *__restrict__ crr,
             float *__restrict__ cri) {
     constexpr int NK = QMODE ? 7 : 3;
+    constexpr bool SUPPRESS = (OPT & 1) != 0;
+    constexpr bool ELASTIC = (OPT & 2) != 0;
     extern __shared__ float4 smem4[];
     float *sm = reinterpret_cast<float *>(smem4);
     int *s_rows = reinterpret_cast<int *>(sm + tile * cs);  // staged rows
@@ -264,7 +293,7 @@ resp_kernel(const float *__restrict__ coefs, const float *__restrict__ pack,
         float *kp = r + k_off + l;
         float vp = P(lay.vp + l, cc), vs = P(lay.vs + l, cc);
         kp[0] = P(lay.h + l, cc);
-        if constexpr (QMODE) {
+        if constexpr (QMODE && !ELASTIC) {
             float qpl = __ldg(qp + (size_t)l * C + c_base + cc);
             float qsl = __ldg(qs + (size_t)l * C + c_base + cc);
             kp[nl] = vp;
@@ -300,7 +329,15 @@ resp_kernel(const float *__restrict__ coefs, const float *__restrict__ pack,
         float jf = (float)min(f, nfreq - 1);
         float w = dw * jf;
         float lgw = jf > 0.0f ? logf(fmaxf(w, 1e-30f) / wref) : 0.0f;
-        if constexpr (QMODE) {
+        if constexpr (ELASTIC) {
+            auto phase_at = [&](int i, cf &e1, cf &e2) {
+                float h_l = kt[i];
+                e1 = phase_of(cmk(kt[nl + i] - pp, 0.0f), h_l, w);
+                e2 = phase_of(cmk(kt[2 * nl + i] - pp, 0.0f), h_l, w);
+            };
+            transmit<WAVE, SUPPRESS>(r, sc, w, depth, phase_at, out, czr,
+                                     czi, crr, cri);
+        } else if constexpr (QMODE) {
             auto phase_at = [&](int i, cf &e1, cf &e2) {
                 float h_l = kt[i];
                 e1 = phase_q(kt[nl + i], kt[3 * nl + i], kt[4 * nl + i], h_l,
@@ -308,8 +345,8 @@ resp_kernel(const float *__restrict__ coefs, const float *__restrict__ pack,
                 e2 = phase_q(kt[2 * nl + i], kt[5 * nl + i], kt[6 * nl + i],
                              h_l, w, pp, lgw);
             };
-            transmit<WAVE>(r, sc, w, depth, phase_at, out, czr, czi, crr,
-                           cri);
+            transmit<WAVE, SUPPRESS>(r, sc, w, depth, phase_at, out, czr,
+                                     czi, crr, cri);
         } else {
             cf iu2_p = inv_u2(lgw, QP);
             cf iu2_s = inv_u2(lgw, QS);
@@ -318,13 +355,13 @@ resp_kernel(const float *__restrict__ coefs, const float *__restrict__ pack,
                 e1 = phase(kt[nl + i], h_l, w, pp, iu2_p);
                 e2 = phase(kt[2 * nl + i], h_l, w, pp, iu2_s);
             };
-            transmit<WAVE>(r, sc, w, depth, phase_at, out, czr, czi, crr,
-                           cri);
+            transmit<WAVE, SUPPRESS>(r, sc, w, depth, phase_at, out, czr,
+                                     czi, crr, cri);
         }
     }
 }
 
-template <int WAVE, bool QMODE>
+template <int WAVE, bool QMODE, int OPT>
 int launch(const float *coefs, const float *pack, const float *qp,
            const float *qs, PackLayout lay, int nl, int C, int F, int nsamp,
            float dw, float wref, int threads, int tile, int cs, int smem,
@@ -332,15 +369,30 @@ int launch(const float *coefs, const float *pack, const float *qp,
            cudaStream_t stream) {
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
-            resp_kernel<WAVE, QMODE>,
+            resp_kernel<WAVE, QMODE, OPT>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (e != cudaSuccess) return (int)e;
     }
     int blocks = (C + tile - 1) / tile;
-    resp_kernel<WAVE, QMODE><<<blocks, threads, smem, stream>>>(
+    resp_kernel<WAVE, QMODE, OPT><<<blocks, threads, smem, stream>>>(
         coefs, pack, qp, qs, lay, nl, C, F, nsamp / 2 + 1, dw, wref, tile,
         cs, czr, czi, crr, cri);
     return (int)cudaGetLastError();
+}
+
+using Launch = int (*)(const float *, const float *, const float *,
+                       const float *, PackLayout, int, int, int, int, float,
+                       float, int, int, int, int, float *, float *, float *,
+                       float *, cudaStream_t);
+
+// the instance of incidence ``wave`` and options bitmask ``options``
+template <bool QMODE>
+Launch arm(int wave, int options) {
+    static const Launch table[8] = {
+        launch<0, QMODE, 0>, launch<0, QMODE, 1>, launch<0, QMODE, 2>,
+        launch<0, QMODE, 3>, launch<1, QMODE, 0>, launch<1, QMODE, 1>,
+        launch<1, QMODE, 2>, launch<1, QMODE, 3>};
+    return table[wave * 4 + options];
 }
 
 int check_geometry(int nl, int threads, int tile, int cs, int smem, int nk) {
@@ -355,38 +407,33 @@ int check_geometry(int nl, int threads, int tile, int cs, int smem, int nk) {
 }  // namespace
 
 // threads, tile, the chain record's floats cs and smem come from
-// ops/resp.py geometry
+// ops/resp.py geometry; options is the bitmask of rf.py
+// SUPPRESS_MULTIPLES (1) and WITHOUT_ANELASTICITY (2)
 extern "C" int bh_resp(const float *coefs, const float *pack,
                        PackLayout lay, int nl, int C, int F, int nsamp,
-                       int wave, float dw, int threads, int tile, int cs,
-                       int smem, float *czr, float *czi, float *crr,
-                       float *cri, cudaStream_t stream) {
+                       int wave, int options, float dw, int threads,
+                       int tile, int cs, int smem, float *czr, float *czi,
+                       float *crr, float *cri, cudaStream_t stream) {
     if (wave != 0 && wave != 1) return (int)cudaErrorInvalidValue;
+    if (options < 0 || options > 3) return (int)cudaErrorInvalidValue;
     if (int e = check_geometry(nl, threads, tile, cs, smem, 3)) return e;
     if ((long)C * F == 0) return 0;
-    if (wave == 0)
-        return launch<0, false>(coefs, pack, nullptr, nullptr, lay, nl, C, F,
-                                nsamp, dw, WREF, threads, tile, cs, smem,
-                                czr, czi, crr, cri, stream);
-    return launch<1, false>(coefs, pack, nullptr, nullptr, lay, nl, C, F,
-                            nsamp, dw, WREF, threads, tile, cs, smem, czr,
-                            czi, crr, cri, stream);
+    return arm<false>(wave, options)(coefs, pack, nullptr, nullptr, lay, nl,
+                                     C, F, nsamp, dw, WREF, threads, tile,
+                                     cs, smem, czr, czi, crr, cri, stream);
 }
 
 extern "C" int bh_resp_q(const float *coefs, const float *pack,
                          const float *qp, const float *qs, PackLayout lay,
-                         int nl, int C, int F, int nsamp, int wave, float dw,
-                         float wref, int threads, int tile, int cs, int smem,
-                         float *czr, float *czi, float *crr, float *cri,
-                         cudaStream_t stream) {
+                         int nl, int C, int F, int nsamp, int wave,
+                         int options, float dw, float wref, int threads,
+                         int tile, int cs, int smem, float *czr, float *czi,
+                         float *crr, float *cri, cudaStream_t stream) {
     if (wave != 0 && wave != 1) return (int)cudaErrorInvalidValue;
+    if (options < 0 || options > 3) return (int)cudaErrorInvalidValue;
     if (int e = check_geometry(nl, threads, tile, cs, smem, 7)) return e;
     if ((long)C * F == 0) return 0;
-    if (wave == 0)
-        return launch<0, true>(coefs, pack, qp, qs, lay, nl, C, F, nsamp, dw,
-                               wref, threads, tile, cs, smem, czr, czi, crr,
-                               cri, stream);
-    return launch<1, true>(coefs, pack, qp, qs, lay, nl, C, F, nsamp, dw,
-                           wref, threads, tile, cs, smem, czr, czi, crr, cri,
-                           stream);
+    return arm<true>(wave, options)(coefs, pack, qp, qs, lay, nl, C, F,
+                                    nsamp, dw, wref, threads, tile, cs, smem,
+                                    czr, czi, crr, cri, stream);
 }

@@ -9,12 +9,14 @@ observed samples.  The model goes to ``rf.synrf`` with its own layers
 (no fixed-width padding); the RF runs on CUDA (K6, then K3 for the
 default Q or K3r for per-layer Q) unless the plugin is constructed or
 called with ``device='cpu'``, which runs the kernels' plain twins.
-The rfmini ``coeff``/``coeffs`` helpers are not ported yet.
+The rfmini helpers ``coeff``/``coeffs`` are re-exported for API parity
+(rfmini.pyx:252-331).
 """
 
 import numpy as np
 
-from bayhunter_tpu_torch.ops.rf import synrf, P_WAVE, SV_WAVE
+from bayhunter_tpu_torch.ops.rf import (synrf, coeff, coeffs,  # noqa: F401
+                                        P_WAVE, SV_WAVE)
 
 
 class SynRF(object):

@@ -91,14 +91,15 @@ SIGNATURES = {
     # stream
     'bh_walk': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                 _F, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    # K3: coefs, pack, layout | nl, C, F, nsamp, wave | dw | threads,
-    # tile, cs, smem (resp.geometry) | czr, czi, crr, cri | stream
-    'bh_resp': [_P, _P, PackLayout, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
-                _P, _P, _P, _P, _P],
-    # K3r: coefs, pack, qp, qs, layout | nl, C, F, nsamp, wave | dw,
-    # wref | threads, tile, cs, smem | czr, czi, crr, cri | stream
-    'bh_resp_q': [_P, _P, _P, _P, PackLayout, _I, _I, _I, _I, _I, _F, _F,
-                  _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # K3: coefs, pack, layout | nl, C, F, nsamp, wave, options | dw |
+    # threads, tile, cs, smem (resp.geometry) | czr, czi, crr, cri |
+    # stream
+    'bh_resp': [_P, _P, PackLayout, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
+                _I, _P, _P, _P, _P, _P],
+    # K3r: coefs, pack, qp, qs, layout | nl, C, F, nsamp, wave, options |
+    # dw, wref | threads, tile, cs, smem | czr, czi, crr, cri | stream
+    'bh_resp_q': [_P, _P, _P, _P, PackLayout, _I, _I, _I, _I, _I, _I, _F,
+                  _F, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # K4: c and its strides over (C, R, K), omega and its strides over
     # (C, R), d, a, b, rho | nl, C, R, K | threads, tile, smem
     # (swd.geometry) | out | stream
@@ -109,10 +110,10 @@ SIGNATURES = {
                     _I, _I, _I, _P, _P],
     # K4 (iwave 2) or K5 (1): iwave, threads, smem | blocks per SM
     'bh_secular_occupancy': [_I, _I, _I, _P],
-    # K6: h, vp, vs, rho | nl, C | p, wave, layout | threads, tile,
-    # smem (prep.geometry) | out | stream
-    'bh_rf_prep': [_P, _P, _P, _P, _I, _I, _F, _I, PackLayout, _I, _I, _I,
-                   _P, _P],
+    # K6: h, vp, vs, rho | nl, C | p, wave, flattening, layout | threads,
+    # tile, smem (prep.geometry) | out | stream
+    'bh_rf_prep': [_P, _P, _P, _P, _I, _I, _F, _I, _I, PackLayout, _I, _I,
+                   _I, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -23,9 +23,14 @@ computes, per chain:
     pack (rows named by ``rf.pack_offsets``; its t0 is the direct P or
     S arrival time).
 
+K1 also returns the layered model's planes for a custom target's
+forward (``layers``).
+
 K6 (``rf_operands``) computes the last item from (NL, C) layer planes
-for the cold evaluation, as ``pallas_prep.rf_operands_t`` does; both
-kernels share its device code (``csrc/prep.cu`` ``rf_item``).
+for the cold evaluation and the batched RF forward, with the
+flattening or on the raw layers (``flattening``), as
+``pallas_prep.rf_operands_t`` does; both kernels share its device code
+(``csrc/prep.cu`` ``rf_item``).
 
 Both kernels give a block a tile of whole chains (:func:`geometry`)
 and write all their planes into one output buffer, which the wrappers
@@ -310,7 +315,7 @@ def _per_target(swd_specs, flat, sph, love):
 
 
 def model_operands_plain(vs_t, z_t, n, vpvs, priors, rf_specs,
-                         swd_specs=None):
+                         swd_specs=None, layers=False):
     """Plain twin of :func:`model_operands` (same arguments/results)."""
     h, vp, vs, rho = _vor.voronoi_to_layers_T(vs_t, z_t, n, vpvs,
                                               priors.mantle)
@@ -319,47 +324,52 @@ def model_operands_plain(vs_t, z_t, n, vpvs, priors, rf_specs,
     flat = _swd_set(h, vp, vs, rho)
     rf = tuple(rf_operands_plain(h, vp, vs, rho, p, wave)
                for p, wave in rf_specs)
+    planes = ((h, vp, vs, rho),) if layers else ()
     if swd_specs is None:
-        return valid, flat, rf
+        return (valid, flat, rf) + planes
     sph = love = None
     if swd_sets(swd_specs)[1]:
         d, a, b, rho_r, love = sphere_operands_T(h, vp, vs, rho)
         sph = _swd_set(d, a, b, rho_r)
-    return valid, _per_target(swd_specs, flat, sph, love), rf
+    return (valid, _per_target(swd_specs, flat, sph, love), rf) + planes
 
 
-def rf_operands_plain(h, vp, vs, rho, p, wave_type=_rf.P_WAVE):
-    """Plain twin of :func:`rf_operands` (same arguments/results)."""
+def rf_operands_plain(h, vp, vs, rho, p, wave_type=_rf.P_WAVE,
+                      flattening=True):
+    """Plain twin of :func:`rf_operands` (same arguments/results).
+    Written without in-place writes, so that ``torch.func`` can
+    differentiate through it (``ops/rf_pd.py``)."""
     nl, C = h.shape
     dt, dev = h.dtype, h.device
     idx = torch.arange(nl, device=dev, dtype=dt)[:, None]
     p_t = torch.tensor(p, dtype=dt, device=dev)
-    hf, vpf, vsf, rhof = _rf.flatten_model_T(h, vp, vs, rho)
+    if flattening:
+        h, vp, vs, rho = _rf.flatten_model_T(h, vp, vs, rho)
     coefs = _stack_pairs(_rf.interface_coeffs(
-        p_t, vpf[:-1], vsf[:-1], rhof[:-1], vpf[1:], vsf[1:], rhof[1:]))
-    v = vpf if wave_type == _rf.P_WAVE else vsf
-    qv = torch.sqrt(torch.clamp(1.0 / (v * v) - p_t * p_t, min=0.0))
-    sgn_h = torch.cat([hf[:-1], -torch.ones_like(hf[:1])], dim=0)
+        p_t, vp[:-1], vs[:-1], rho[:-1], vp[1:], vs[1:], rho[1:]))
+    v = vp if wave_type == _rf.P_WAVE else vs
+    qv = _rf.sqrt_relu(1.0 / (v * v) - p_t * p_t)
+    sgn_h = torch.cat([h[:-1], -torch.ones_like(h[:1])], dim=0)
     t0 = _vor.running_sum(sgn_h * qv)[-1]
-    real = ((hf[:-1] > 0.0) | (vpf[:-1] != vpf[1:]) | (vsf[:-1] != vsf[1:])
-            | (rhof[:-1] != rhof[1:]))
+    real = ((h[:-1] > 0.0) | (vp[:-1] != vp[1:]) | (vs[:-1] != vs[1:])
+            | (rho[:-1] != rho[1:]))
     depth = torch.amax(torch.where(real, idx[:-1], torch.zeros_like(
-        hf[:-1])), dim=0)
+        idx[:-1])), dim=0)
     off = _rf.pack_offsets(nl)
-    pack = torch.zeros((off['rows'], C), dtype=dt, device=dev)
-    for name, plane in (('h', hf), ('vp', vpf), ('vs', vsf)):
-        pack[off[name]:off[name] + nl] = plane
-    pack[off['p']] = p_t
-    pack[off['t0']] = t0
-    for name, mat in (('hmat', _rf.displacement(p_t, vpf[0], vsf[0])),
-                      ('nt', _rf.free_surface(p_t, vpf[0], vsf[0]))):
-        pack[off[name]:off[name] + 8] = torch.stack(
-            [x for entry in mat for x in entry])
-    pack[off['depth']] = depth
+    mats = [torch.stack([x for entry in mat for x in entry])
+            for mat in (_rf.displacement(p_t, vp[0], vs[0]),
+                        _rf.free_surface(p_t, vp[0], vs[0]))]
+    # the rows in pack_offsets' order: h, vp, vs, p, t0, hmat, nt, depth,
+    # then the zero padding
+    pack = torch.cat([h, vp, vs, p_t.expand(1, C), t0[None]] + mats
+                     + [depth[None],
+                        torch.zeros((off['rows'] - off['depth'] - 1, C),
+                                    dtype=dt, device=dev)], dim=0)
     return coefs, pack
 
 
-def model_operands(vs_t, z_t, n, vpvs, priors, rf_specs, swd_specs=None):
+def model_operands(vs_t, z_t, n, vpvs, priors, rf_specs, swd_specs=None,
+                   layers=False):
     """Model operands of depth-sorted (NL, C) nuclei.
 
     ``n`` (C,) int32 nucleus counts, ``vpvs`` (C,); ``priors`` a
@@ -371,11 +381,15 @@ def model_operands(vs_t, z_t, n, vpvs, priors, rf_specs, swd_specs=None):
     spec — its flattening's set, and the Love density plane of a
     spherical Love target (else None: plane 3 of props); and a tuple of
     one (coefs, pack) per RF spec; all row views of one output buffer.
+    With ``layers`` (a custom target's forward) a fourth result, the
+    layered model's (NL, C) planes (h, vp, vs, rho): the flat set's
+    props rows, which hold the layers before any flattening, so the
+    kernel writes the flat set whatever the dispersion targets ask.
     CPU tensors run the plain twin; CUDA tensors launch the kernel (the
     spherical one when a spec asks for a spherical set)."""
     if vs_t.device.type == 'cpu':
         return model_operands_plain(vs_t, z_t, n, vpvs, priors, rf_specs,
-                                    swd_specs)
+                                    swd_specs, layers)
     dev = vs_t.device
     nl, C = vs_t.shape
     f32 = torch.float32
@@ -387,6 +401,8 @@ def model_operands(vs_t, z_t, n, vpvs, priors, rf_specs, swd_specs=None):
         raise ValueError('%d RF targets, the kernel serves at most %d'
                          % (len(rf_specs), _ext.RF_MAX))
     sets = swd_sets(swd_specs)
+    if layers:
+        sets = (1,) + sets[1:]
     lo = cached_outputs(nl, tuple(rf_specs), sets)
     geo = geometry(C, nl, len(rf_specs), True, bool(sets[1]))
     out = torch.empty((lo.rows, C), dtype=f32, device=dev)
@@ -401,12 +417,14 @@ def model_operands(vs_t, z_t, n, vpvs, priors, rf_specs, swd_specs=None):
     _ext.check(rc, 'prep')
     model_operands.launches += 1
     model_operands.sph_launches += sets[1]
+    model_operands.layer_launches += layers
     # few view calls, not one per plane: each costs host time
     parts = out.split(lo.sizes)
     nswd = len(lo.sizes) - 2 * len(rf_specs)
     rf = tuple(zip(parts[nswd::2], parts[nswd + 1::2]))
+    planes = (parts[0].unflatten(0, (4, nl)).unbind(),) if layers else ()
     if swd_specs is None:
-        return valid, (parts[0],) + parts[1].unbind(), rf
+        return (valid, (parts[0],) + parts[1].unbind(), rf) + planes
     flat_w, sph_w, love_w = lo.swd[:3]
     k = 0
     flat = sph = love = None
@@ -418,11 +436,12 @@ def model_operands(vs_t, z_t, n, vpvs, priors, rf_specs, swd_specs=None):
         k += 2
     if love_w:
         love = parts[k]
-    return valid, _per_target(swd_specs, flat, sph, love), rf
+    return (valid, _per_target(swd_specs, flat, sph, love), rf) + planes
 
 
-model_operands.launches = 0       # every launch
-model_operands.sph_launches = 0   # launches with a spherical set
+model_operands.launches = 0        # every launch
+model_operands.sph_launches = 0    # launches with a spherical set
+model_operands.layer_launches = 0  # launches that return the layers
 
 
 @functools.lru_cache(maxsize=16)
@@ -431,14 +450,15 @@ def _pack_layout(nl):
     return off, _ext.pack_layout(off)
 
 
-def rf_operands(h, vp, vs, rho, p, wave_type=_rf.P_WAVE):
+def rf_operands(h, vp, vs, rho, p, wave_type=_rf.P_WAVE, flattening=True):
     """The RF operands (coefs, pack) of (NL, C) layer planes: rfmini
-    flattening, the ((NL-1)*32, C) interface tables and the per-chain
-    pack for incidence ``wave_type`` at slowness ``p`` (s/km), row
-    views of one output buffer.  CPU tensors run the plain twin; CUDA
-    tensors launch K6."""
+    flattening (unless ``flattening`` is False: the raw layers), the
+    ((NL-1)*32, C) interface tables and the per-chain pack for
+    incidence ``wave_type`` at slowness ``p`` (s/km), row views of one
+    output buffer.  CPU tensors run the plain twin; CUDA tensors launch
+    K6 (its flattened or its unflattened arm)."""
     if h.device.type == 'cpu':
-        return rf_operands_plain(h, vp, vs, rho, p, wave_type)
+        return rf_operands_plain(h, vp, vs, rho, p, wave_type, flattening)
     dev = h.device
     nl, C = h.shape
     f32 = torch.float32
@@ -452,11 +472,14 @@ def rf_operands(h, vp, vs, rho, p, wave_type=_rf.P_WAVE):
     with torch.cuda.device(dev):
         rc = lib.bh_rf_prep(
             _ext.ptr(h), _ext.ptr(vp), _ext.ptr(vs), _ext.ptr(rho), nl, C,
-            float(p), _rf.wave_index(wave_type), layout, geo.threads,
-            geo.tile, geo.smem, _ext.ptr(out), _ext.stream(dev))
+            float(p), _rf.wave_index(wave_type), int(bool(flattening)),
+            layout, geo.threads, geo.tile, geo.smem, _ext.ptr(out),
+            _ext.stream(dev))
     _ext.check(rc, 'rf_prep')
     rf_operands.launches += 1
+    rf_operands.unflat_launches += not flattening
     return out.split((ncoef, off['rows']))
 
 
-rf_operands.launches = 0
+rf_operands.launches = 0          # every launch
+rf_operands.unflat_launches = 0   # launches of the unflattened arm

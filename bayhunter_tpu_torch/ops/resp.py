@@ -13,6 +13,10 @@ evaluation, all nsamp/2 + 1 lanes; the batched RF forward).
     ``transmission_response_pallas``): per-layer (NL, C) Qp/Qs planes
     and any reference frequency.  Twin ``ops/rf.py``
     :func:`transmission_response_q`.
+
+Both take the ``options`` bitmask of the JAX package's XLA ``synrf``
+(``rf.SUPPRESS_MULTIPLES``, ``rf.WITHOUT_ANELASTICITY``), one kernel
+instance per value; their twins take the same argument.
 """
 
 import functools
@@ -122,20 +126,24 @@ def _outputs(coefs, pack, cut, nsamp):
                                          device=dev) for _ in range(4))
 
 
-def resp_plain(coefs, pack, cut, nsamp, fsamp, wave_type=_rf.P_WAVE):
+def resp_plain(coefs, pack, cut, nsamp, fsamp, wave_type=_rf.P_WAVE,
+               options=0):
     """Plain twin of :func:`resp` (same arguments and results)."""
     return _rf.transmission_response(coefs, pack, cut, nsamp, fsamp,
-                                     wave_type)
+                                     wave_type, options)
 
 
-def resp(coefs, pack, cut, nsamp, fsamp, wave_type=_rf.P_WAVE):
+def resp(coefs, pack, cut, nsamp, fsamp, wave_type=_rf.P_WAVE, options=0):
     """(cz re, cz im, cr re, cr im), each (C, cut) float32, of the
     operands ``coefs`` ((NL-1)*32, C) and ``pack`` (rows, C) for
-    incidence ``wave_type`` under uniform Q.  CPU tensors run the plain
-    twin; CUDA tensors launch K3."""
+    incidence ``wave_type`` under uniform Q, or with the ``options``
+    bitmask (``rf.options_index``).  CPU tensors run the plain twin;
+    CUDA tensors launch K3."""
     if coefs.device.type == 'cpu':
-        return resp_plain(coefs, pack, cut, nsamp, fsamp, wave_type)
+        return resp_plain(coefs, pack, cut, nsamp, fsamp, wave_type,
+                          options)
     wave = _rf.wave_index(wave_type)
+    opt = _rf.options_index(options)
     dev = coefs.device
     nl, C, off, outs = _outputs(coefs, pack, cut, nsamp)
     geo = geometry(C, int(cut), nl)
@@ -143,35 +151,40 @@ def resp(coefs, pack, cut, nsamp, fsamp, wave_type=_rf.P_WAVE):
     with torch.cuda.device(dev):
         rc = lib.bh_resp(
             _ext.ptr(coefs), _ext.ptr(pack), _ext.pack_layout(off), nl, C,
-            int(cut), int(nsamp), wave, float(2.0 * np.pi * fsamp / nsamp),
-            geo.threads, geo.tile, geo.cs, geo.smem,
-            *(_ext.ptr(o) for o in outs), _ext.stream(dev))
+            int(cut), int(nsamp), wave, opt,
+            float(2.0 * np.pi * fsamp / nsamp), geo.threads, geo.tile,
+            geo.cs, geo.smem, *(_ext.ptr(o) for o in outs),
+            _ext.stream(dev))
     _ext.check(rc, 'resp')
     resp.launches += 1
     resp.sv_launches += wave
+    resp.option_launches[wave][opt] += 1
     return outs
 
 
 resp.launches = 0         # every launch
 resp.sv_launches = 0      # launches for SV incidence
+# launches by incidence (P, SV) and options bitmask
+resp.option_launches = [[0] * 4, [0] * 4]
 
 
 def resp_q_plain(coefs, pack, qp, qs, cut, nsamp, fsamp,
-                 wave_type=_rf.P_WAVE, fref=_rf.FREF):
+                 wave_type=_rf.P_WAVE, fref=_rf.FREF, options=0):
     """Plain twin of :func:`resp_q` (same arguments and results)."""
     return _rf.transmission_response_q(coefs, pack, qp, qs, cut, nsamp,
-                                       fsamp, wave_type, fref)
+                                       fsamp, wave_type, fref, options)
 
 
 def resp_q(coefs, pack, qp, qs, cut, nsamp, fsamp, wave_type=_rf.P_WAVE,
-           fref=_rf.FREF):
+           fref=_rf.FREF, options=0):
     """:func:`resp` with per-layer quality factors ``qp``, ``qs``
     ((NL, C) float32 planes) at reference frequency ``fref`` (Hz).
     CPU tensors run the plain twin; CUDA tensors launch K3r."""
     if coefs.device.type == 'cpu':
         return resp_q_plain(coefs, pack, qp, qs, cut, nsamp, fsamp,
-                            wave_type, fref)
+                            wave_type, fref, options)
     wave = _rf.wave_index(wave_type)
+    opt = _rf.options_index(options)
     dev = coefs.device
     nl, C, off, outs = _outputs(coefs, pack, cut, nsamp)
     _ext.require(qp, 'qp', dev, torch.float32, (nl, C))
@@ -181,15 +194,18 @@ def resp_q(coefs, pack, qp, qs, cut, nsamp, fsamp, wave_type=_rf.P_WAVE,
     with torch.cuda.device(dev):
         rc = lib.bh_resp_q(
             _ext.ptr(coefs), _ext.ptr(pack), _ext.ptr(qp), _ext.ptr(qs),
-            _ext.pack_layout(off), nl, C, int(cut), int(nsamp), wave,
+            _ext.pack_layout(off), nl, C, int(cut), int(nsamp), wave, opt,
             float(2.0 * np.pi * fsamp / nsamp), float(2.0 * np.pi * fref),
             geo.threads, geo.tile, geo.cs, geo.smem,
             *(_ext.ptr(o) for o in outs), _ext.stream(dev))
     _ext.check(rc, 'resp_q')
     resp_q.launches += 1
     resp_q.sv_launches += wave
+    resp_q.option_launches[wave][opt] += 1
     return outs
 
 
 resp_q.launches = 0       # every launch
 resp_q.sv_launches = 0    # launches for SV incidence
+# launches by incidence (P, SV) and options bitmask
+resp_q.option_launches = [[0] * 4, [0] * 4]

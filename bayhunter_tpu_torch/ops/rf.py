@@ -23,9 +23,19 @@ Mirrors ``bayhunter_tpu/ops/rf.py`` and the pair arithmetic of
   * ``deconvolve`` (``rf.py:512``, the SV swap included), the Gauss
     cutoff ``gauss_cut`` and the folded cos/sin inverse-DFT tables
     (``rf.py:666-711``);
+  * the ``options`` bitmask of the JAX ``synrf`` (``rf.py:48-57``):
+    ``SUPPRESS_MULTIPLES``, the direct transmission without
+    reverberations (``step_suppress``, ``rf.py:445-455``), and
+    ``WITHOUT_ANELASTICITY``, real velocities in the phase terms
+    (``rf.py:372-379``), in both responses;
   * ``synrf_batch`` and ``synrf``: the public batched RF forward of
     (C, NL) models with scalar or per-layer Q (``rf.py:602-715``) on
-    kernels K6 and K3 or K3r.
+    kernels K6 (with or without the flattening) and K3 or K3r;
+  * the JAX module's host-side introspection, complex values on the
+    CPU from the same pair arithmetic: ``interface_coefficients``,
+    ``interface_coefficients_sh``, ``free_surface_reflection``,
+    ``displacement_matrix``, the rfmini helpers ``coeff`` and
+    ``coeffs``, ``flatten_model`` and ``rho_vp``.
 """
 
 import numpy as np
@@ -38,6 +48,13 @@ P_WAVE, SV_WAVE = 0, 1    # incidence of the RF's wave
 # constants)
 QP_UNIFORM, QS_UNIFORM = 500.0, 225.0
 FREF = 1.0
+# the solver options of rfmini (synrf.h:52-53), a bitmask:
+# SUPPRESS_MULTIPLES drops the reverberation operator, so the response
+# is the direct downward transmission g = prod_i e_i tu_{i+1};
+# WITHOUT_ANELASTICITY takes real (elastic) velocities in the phase
+# terms, the Q -> inf limit of Mueller eq. 132
+SUPPRESS_MULTIPLES = 1
+WITHOUT_ANELASTICITY = 2
 
 
 def wave_index(wave_type):
@@ -46,6 +63,15 @@ def wave_index(wave_type):
         raise ValueError('wave_type %r is neither P (0) nor SV (1)'
                          % (wave_type,))
     return int(wave_type)
+
+
+def options_index(options):
+    """``options`` as the kernels take it, a bitmask of
+    SUPPRESS_MULTIPLES and WITHOUT_ANELASTICITY (0 to 3)."""
+    if options not in range(4):
+        raise ValueError('options %r is not a bitmask of SUPPRESS_MULTIPLES '
+                         '(1) and WITHOUT_ANELASTICITY (2)' % (options,))
+    return int(options)
 
 
 # ----------------------------------------------------------------------
@@ -94,15 +120,23 @@ def _cexp(a):
     return (m * torch.cos(a[1]), m * torch.sin(a[1]))
 
 
+def sqrt_relu(x):
+    """sqrt(max(x, 0)) whose forward-mode tangent is 0, not 0 * inf =
+    NaN, where the clamp is active (``ops/rf_pd.py`` differentiates
+    through it); the value is the kernels' sqrtf(fmaxf(x, 0))."""
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x,
+                                                   torch.ones_like(x))),
+                       torch.zeros_like(x))
+
+
 def _csqrt_conj_real(x):
     """conj(sqrt(complex(x))) for real x (interface coefficients)."""
-    return (torch.sqrt(torch.clamp(x, min=0.0)),
-            -torch.sqrt(torch.clamp(-x, min=0.0)))
+    return sqrt_relu(x), -sqrt_relu(-x)
 
 
 def _csqrt_plain_real(x):
-    return (torch.sqrt(torch.clamp(x, min=0.0)),
-            torch.sqrt(torch.clamp(-x, min=0.0)))
+    return sqrt_relu(x), sqrt_relu(-x)
 
 
 def _m4mul(A, B):
@@ -237,6 +271,125 @@ def flatten_model_T(h, vp, vs, rho):
     return zf_bot - zf_top, vp * q_top, vs * q_top, rho / q_top
 
 
+def flatten_model(h, vp, vs, rho):
+    """:func:`flatten_model_T` of one model's (NL,) layer arrays."""
+    out = flatten_model_T(*(torch.as_tensor(x)[:, None]
+                            for x in (h, vp, vs, rho)))
+    return tuple(x[:, 0] for x in out)
+
+
+def rho_vp(vp):
+    """Berteussen/Gardner density-velocity relation (model.cpp:150-165)
+    of a tensor, an array or a number."""
+    exp = torch.exp if torch.is_tensor(vp) else np.exp
+    return (0.77 + 0.32 * vp
+            + 0.68 * exp(-0.12 * (vp - 1.8) ** 2)
+            - 0.09 * (vp - 5.5) * exp(-0.7 * (vp - 5.5) ** 2))
+
+
+# ----------------------------------------------------------------------
+# host-side introspection: complex values on the CPU
+# ----------------------------------------------------------------------
+
+def _real_dtype(cdtype):
+    return torch.float32 if cdtype == torch.complex64 else torch.float64
+
+
+def _operands(cdtype, *xs):
+    """``xs`` as broadcast CPU tensors of the real dtype of
+    ``cdtype``."""
+    dt = _real_dtype(cdtype)
+    return torch.broadcast_tensors(*(torch.as_tensor(x, dtype=dt)
+                                     for x in xs))
+
+
+def _cmat(m):
+    """A 4-tuple of (re, im) pairs as a (..., 2, 2) complex tensor."""
+    c = [torch.complex(*e) for e in m]
+    return torch.stack([torch.stack(c[:2], dim=-1),
+                        torch.stack(c[2:], dim=-1)], dim=-2)
+
+
+def interface_coefficients(u, vp1, vs1, rho1, vp2, vs2, rho2,
+                           cdtype=torch.complex128):
+    """P-SV R/T matrices (rd, td, ru, tu) of a welded interface at
+    slowness ``u`` (s/km), each a (..., 2, 2) complex tensor on the CPU
+    (inputs broadcast) from :func:`interface_coeffs`."""
+    return tuple(_cmat(m) for m in interface_coeffs(
+        *_operands(cdtype, u, vp1, vs1, rho1, vp2, vs2, rho2)))
+
+
+def interface_coefficients_sh(u, vs1, rho1, vs2, rho2,
+                              cdtype=torch.complex128):
+    """SH scalar R/T coefficients (rhd, thd, rhu, thu) of a welded
+    interface (greens.cpp:78-85), complex tensors on the CPU."""
+    u, vs1, rho1, vs2, rho2 = _operands(cdtype, u, vs1, rho1, vs2, rho2)
+    mb1 = _cscale(rho1 * vs1 * vs1,
+                  _csqrt_conj_real(1.0 / (vs1 * vs1) - u * u))
+    mb2 = _cscale(rho2 * vs2 * vs2,
+                  _csqrt_conj_real(1.0 / (vs2 * vs2) - u * u))
+    mmm = _cinv(_cadd(mb1, mb2))
+    rhd = _cmul(_csub(mb1, mb2), mmm)
+    thd = _cmul(_cscale(2.0, mb1), mmm)
+    thu = _cmul(_cscale(2.0, mb2), mmm)
+    return tuple(torch.complex(*x) for x in (rhd, thd, _cscale(-1.0, rhd),
+                                             thu))
+
+
+def free_surface_reflection(u, vp, vs, cdtype=torch.complex128):
+    """Free-surface P-SV reflection matrix (..., 2, 2) for upgoing
+    waves, complex on the CPU, from :func:`free_surface`."""
+    return _cmat(free_surface(*_operands(cdtype, u, vp, vs)))
+
+
+def displacement_matrix(u, vp, vs, cdtype=torch.complex128):
+    """Free-surface displacement matrix (..., 2, 2) (Mueller eq. 89),
+    complex on the CPU, from :func:`displacement`."""
+    return _cmat(displacement(*_operands(cdtype, u, vp, vs)))
+
+
+def _entries(m):
+    """A (2, 2) complex matrix's (11, 12, 21, 22) as Python complex."""
+    return tuple(complex(m[i, j]) for i, j in ((0, 0), (0, 1), (1, 0),
+                                               (1, 1)))
+
+
+def coeff(p, vp1, vs1, rh1, vp2, vs2, rh2, dis=1):
+    """rfmini's ``coeff`` (rfmini.pyx:252-314, wrap.cpp:91-153): the
+    plane-wave R/T coefficients of a welded interface between two
+    halfspaces, five 4-tuples of complex values ``(rd, td, ru, tu,
+    sh)``, each P-SV tuple in (11, 12, 21, 22) order and ``sh = (rhd,
+    thd, rhu, thu)``.  ``dis`` nonzero gives displacement coefficients
+    (the velocity-ratio rescaling of wrap.cpp), 0 potential ones."""
+    rd, td, ru, tu = (m.numpy().copy() for m in interface_coefficients(
+        p, vp1, vs1, rh1, vp2, vs2, rh2))
+    if dis:
+        ru[0, 1] *= vs2 / vp2
+        ru[1, 0] *= vp2 / vs2
+        tu[0, 0] *= vp2 / vp1
+        tu[0, 1] *= vs2 / vp1
+        tu[1, 0] *= vp2 / vs1
+        tu[1, 1] *= vs2 / vs1
+        rd[0, 1] *= vs1 / vp1
+        rd[1, 0] *= vp1 / vs1
+        td[0, 0] *= vp1 / vp2
+        td[0, 1] *= vs1 / vp2
+        td[1, 0] *= vp1 / vs2
+        td[1, 1] *= vs1 / vs2
+    sh = tuple(complex(x) for x in interface_coefficients_sh(
+        p, vs1, rh1, vs2, rh2))
+    return tuple(_entries(m) for m in (rd, td, ru, tu)) + (sh,)
+
+
+def coeffs(p, vp, vs, rh=None):
+    """rfmini's ``coeffs`` (rfmini.pyx:316-331, greens.cpp:87-112): the
+    free-surface reflection ``((ru11, ru12, ru21, ru22), rhu)`` with the
+    total SH reflection rhu = 1; ``rh`` is accepted and unused, as
+    there."""
+    return (_entries(free_surface_reflection(p, vp, vs)),
+            complex(1.0, 0.0))
+
+
 # ----------------------------------------------------------------------
 # packed operands (rows of the model kernel's RF pack, (rows, C))
 # ----------------------------------------------------------------------
@@ -292,12 +445,28 @@ def _phase_of(x, w, h_l):
     return _cexp((w * h_l * qc[1], -w * h_l * qc[0]))
 
 
-def _transmit(coefs, pack, w, phase_at, depth, wave_type):
+def _phase_elastic(v, p, w, h_l):
+    """The phase term of real velocity ``v`` (WITHOUT_ANELASTICITY):
+    x = 1/v^2 - p^2 with a zero imaginary part, its square root still
+    complex."""
+    r = 1.0 / (v * v)
+    return _phase_of((r - p * p, torch.zeros_like(r)), w, h_l)
+
+
+def _select(on, a, b):
+    """Matrix ``a`` where ``on``, else ``b`` (4-tuples of pairs)."""
+    return tuple(tuple(torch.where(on, ua, ub) for ua, ub in zip(pa, pb))
+                 for pa, pb in zip(a, b))
+
+
+def _transmit(coefs, pack, w, phase_at, depth, wave_type, suppress=False):
     """The Mueller recursion shared by both responses: layer 0 (free
     surface on top) always runs, layers 1..``depth`` (C, 1) follow,
     deeper slots are identities and are skipped per chain;
-    ``phase_at(i)`` gives layer i's (e1, e2).  Returns the (cz, cr)
-    planes of incidence ``wave_type``."""
+    ``phase_at(i)`` gives layer i's (e1, e2).  With ``suppress``
+    (SUPPRESS_MULTIPLES) the direct transmission g = prod_i e_i
+    tu_{i+1} alone.  Returns the (cz, cr) planes of incidence
+    ``wave_type``."""
     nl = coefs.shape[0] // 32 + 1
     off = pack_offsets(nl)
 
@@ -324,26 +493,26 @@ def _transmit(coefs, pack, w, phase_at, depth, wave_type):
                 _cmul(e2, q_[2]), _cmul(e2, q_[3]))
 
     (rd_n, td_i, ru_n, tu_n), e1, e2 = layer_parts(0)
-    nb = sandwich(nt_surf, e1, e2)
-    q_ = _m4mul(_m4inv_of_eye_minus(_m4mul(rd_n, nb)), tu_n)
-    g = columns(e1, e2, q_)
-    x = _m4mul(nb, q_)
-    ru, td_prev = ru_n, td_i
-    for i in range(1, nl - 1):
-        (rd_n, td_i, ru_n, tu_n), e1, e2 = layer_parts(i)
-        nt = tuple(_cadd(a, b) for a, b in zip(ru, _m4mul(td_prev, x)))
-        nb = sandwich(nt, e1, e2)
+    if suppress:
+        g = columns(e1, e2, tu_n)
+        for i in range(1, nl - 1):
+            (_, _, _, tu_n), e1, e2 = layer_parts(i)
+            g = _select(depth >= i, _m4mul(g, columns(e1, e2, tu_n)), g)
+    else:
+        nb = sandwich(nt_surf, e1, e2)
         q_ = _m4mul(_m4inv_of_eye_minus(_m4mul(rd_n, nb)), tu_n)
-        new = (_m4mul(nb, q_), _m4mul(g, columns(e1, e2, q_)), ru_n,
-               td_i)
-        on = depth >= i
-
-        def sel(a, b):
-            return tuple(tuple(torch.where(on, ua, ub)
-                               for ua, ub in zip(pa, pb))
-                         for pa, pb in zip(a, b))
-        x, g, ru, td_prev = (sel(a, b) for a, b in
-                             zip(new, (x, g, ru, td_prev)))
+        g = columns(e1, e2, q_)
+        x = _m4mul(nb, q_)
+        ru, td_prev = ru_n, td_i
+        for i in range(1, nl - 1):
+            (rd_n, td_i, ru_n, tu_n), e1, e2 = layer_parts(i)
+            nt = tuple(_cadd(a, b) for a, b in zip(ru, _m4mul(td_prev, x)))
+            nb = sandwich(nt, e1, e2)
+            q_ = _m4mul(_m4inv_of_eye_minus(_m4mul(rd_n, nb)), tu_n)
+            new = (_m4mul(nb, q_), _m4mul(g, columns(e1, e2, q_)), ru_n,
+                   td_i)
+            x, g, ru, td_prev = (_select(depth >= i, a, b) for a, b in
+                                 zip(new, (x, g, ru, td_prev)))
 
     # column wave_type of 2 hmat g: rows 0 (R) and 1 (Z)
     t_full = _m4mul(hmat, g)
@@ -357,14 +526,16 @@ def _transmit(coefs, pack, w, phase_at, depth, wave_type):
 
 
 def transmission_response(coefs, pack, nfreq_lanes, nsamp, fsamp,
-                          wave_type=P_WAVE):
+                          wave_type=P_WAVE, options=0):
     """(cz, cr) responses for incidence ``wave_type`` under uniform Q
     (Qp 500, Qs 225, 1 Hz reference) as four (C, F) planes (cz re,
     cz im, cr re, cr im) for the first F = ``nfreq_lanes``
-    frequencies — the plain twin of kernel K3.
+    frequencies, with the ``options`` bitmask (SUPPRESS_MULTIPLES,
+    WITHOUT_ANELASTICITY) — the plain twin of kernel K3.
 
     ``coefs`` ((NL-1)*32, C) interface tables (row l*32 + m*8 + e*2 +
     c); ``pack`` (rows, C) per-chain operands (:func:`pack_offsets`)."""
+    opt = options_index(options)
     nl = coefs.shape[0] // 32 + 1
     off = pack_offsets(nl)
     w, lgw = frequency_axis(nfreq_lanes, nsamp, fsamp, coefs.device,
@@ -380,11 +551,15 @@ def transmission_response(coefs, pack, nfreq_lanes, nsamp, fsamp,
 
     def phase_at(i):
         h_l = pack[off['h'] + i][:, None]
-        return (phase(pack[off['vp'] + i][:, None], h_l, iu2_p),
-                phase(pack[off['vs'] + i][:, None], h_l, iu2_s))
+        vp, vs = pack[off['vp'] + i][:, None], pack[off['vs'] + i][:, None]
+        if opt & WITHOUT_ANELASTICITY:
+            return _phase_elastic(vp, p, w, h_l), _phase_elastic(vs, p, w,
+                                                                 h_l)
+        return phase(vp, h_l, iu2_p), phase(vs, h_l, iu2_s)
 
     return _transmit(coefs, pack, w, phase_at,
-                     pack[off['depth']][:, None], wave_type)
+                     pack[off['depth']][:, None], wave_type,
+                     bool(opt & SUPPRESS_MULTIPLES))
 
 
 def q_depth(depth, qp, qs):
@@ -400,13 +575,15 @@ def q_depth(depth, qp, qs):
 
 
 def transmission_response_q(coefs, pack, qp, qs, nfreq_lanes, nsamp, fsamp,
-                            wave_type=P_WAVE, fref=FREF):
+                            wave_type=P_WAVE, fref=FREF, options=0):
     """:func:`transmission_response` with per-layer quality factors —
     the plain twin of kernel K3r.  ``qp``, ``qs`` (NL, C) planes;
     ``fref`` the reference frequency (Hz) of the anelastic dispersion.
     Each layer's phase uses its complex velocity
     vc = v (1 + ln(w/wref)/(pi Q)) + i v/(2Q) (``pallas_rf.py:382-388``),
-    and the skip depth counts Q contrasts (:func:`q_depth`)."""
+    or its real velocity under WITHOUT_ANELASTICITY, and the skip depth
+    counts Q contrasts (:func:`q_depth`)."""
+    opt = options_index(options)
     nl = coefs.shape[0] // 32 + 1
     off = pack_offsets(nl)
     w, lgw = frequency_axis(nfreq_lanes, nsamp, fsamp, coefs.device, fref,
@@ -423,11 +600,16 @@ def transmission_response_q(coefs, pack, qp, qs, nfreq_lanes, nsamp, fsamp,
 
     def phase_at(i):
         h_l = pack[off['h'] + i][:, None]
-        return (phase(pack[off['vp'] + i][:, None], qp[i][:, None], h_l),
-                phase(pack[off['vs'] + i][:, None], qs[i][:, None], h_l))
+        vp, vs = pack[off['vp'] + i][:, None], pack[off['vs'] + i][:, None]
+        if opt & WITHOUT_ANELASTICITY:
+            return _phase_elastic(vp, p, w, h_l), _phase_elastic(vs, p, w,
+                                                                 h_l)
+        return (phase(vp, qp[i][:, None], h_l),
+                phase(vs, qs[i][:, None], h_l))
 
     depth = q_depth(pack[off['depth']], qp, qs)[:, None]
-    return _transmit(coefs, pack, w, phase_at, depth, wave_type)
+    return _transmit(coefs, pack, w, phase_at, depth, wave_type,
+                     bool(opt & SUPPRESS_MULTIPLES))
 
 
 # ----------------------------------------------------------------------
@@ -450,7 +632,8 @@ def gauss_shift_coeffs(nfreq, nsamp, fsamp, tshift, gauss_a):
             * np.exp(-0.25 * wa * wa - 1j * w * tshift))
 
 
-def dft_tables(cut, nsamp, fsamp, tshift, gauss_a, device):
+def dft_tables(cut, nsamp, fsamp, tshift, gauss_a, device,
+               dtype=torch.float32):
     """Inverse real DFT over the first ``cut`` bins with the Gauss
     low-pass and time shift folded in: rf = Re(crf) @ cos_q +
     Im(crf) @ sin_q."""
@@ -462,9 +645,9 @@ def dft_tables(cut, nsamp, fsamp, tshift, gauss_a, device):
     sin_t = np.sin(ang) * (-scale)
     cq = gauss_shift_coeffs(cut, nsamp, fsamp, tshift, gauss_a)
     rq, iq = np.real(cq)[:, None], np.imag(cq)[:, None]
-    return (torch.tensor(rq * cos_t + iq * sin_t, dtype=torch.float32,
+    return (torch.tensor(rq * cos_t + iq * sin_t, dtype=dtype,
                          device=device),
-            torch.tensor(rq * sin_t - iq * cos_t, dtype=torch.float32,
+            torch.tensor(rq * sin_t - iq * cos_t, dtype=dtype,
                          device=device))
 
 
@@ -552,21 +735,22 @@ def surface_velocities(pack, nl, nsv=None):
 # the public batched forward
 # ----------------------------------------------------------------------
 
-def _on_device(x, dev, shape=None):
-    """``x`` (array, tensor or scalar) as a float32 tensor on ``dev``,
+def _on_device(x, dev, shape=None, dtype=torch.float32):
+    """``x`` (array, tensor or scalar) as a ``dtype`` tensor on ``dev``,
     broadcast to ``shape`` when given."""
-    t = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    t = torch.as_tensor(x, dtype=dtype, device=dev)
     return t if shape is None else t.expand(shape).contiguous()
 
 
 def synrf_batch(h, vp, vs, rho, qp, qs, p_sdeg, gauss_a, nsamp, fsamp,
                 tshift, nsv, poisson, wave_type=P_WAVE, fref=FREF,
                 flattening=True, device=None):
-    """Receiver functions (C, nsamp) float32 of C layered models.
+    """Receiver functions (C, nsamp) of C layered models.
 
-    ``h``, ``vp``, ``vs``, ``rho``: (C, NL) padded, unflattened layer
-    arrays (halfspace last, zero-thickness padding); ``qp``, ``qs``:
-    (C, NL) quality factors or scalars; ``p_sdeg`` slowness (s/deg);
+    ``h``, ``vp``, ``vs``, ``rho``: (C, NL) padded layer arrays
+    (halfspace last, zero-thickness padding), spherical and flattened
+    here unless ``flattening`` is False; ``qp``, ``qs``: (C, NL)
+    quality factors or scalars; ``p_sdeg`` slowness (s/deg);
     ``gauss_a`` the Gauss low-pass parameter; ``nsamp``, ``fsamp``,
     ``tshift`` the time axis; ``nsv``, ``poisson``: per chain (or
     scalar) near-surface S velocity and Poisson ratio of the Z/R
@@ -579,8 +763,9 @@ def synrf_batch(h, vp, vs, rho, qp, qs, p_sdeg, gauss_a, nsamp, fsamp,
     the Gauss-cut frequencies, then the deconvolution and the folded
     inverse DFT, as ``bayhunter_tpu/ops/rf.py`` ``synrf_batch`` does.
     Arrays and scalars go to ``device`` (default: CUDA; tensors stay
-    on their own device unless ``device`` is given); CPU tensors run
-    the kernels' plain twins.  ``flattening=False`` is not ported."""
+    on their own device unless ``device`` is given) as float32; CPU
+    tensors run the kernels' plain twins, in float64 for float64
+    tensors."""
     rotated, series = _rotated_spectra(
         h, vp, vs, rho, qp, qs, p_sdeg, gauss_a, nsamp, fsamp, tshift, nsv,
         poisson, wave_type, fref, flattening, device)
@@ -589,43 +774,51 @@ def synrf_batch(h, vp, vs, rho, qp, qs, p_sdeg, gauss_a, nsamp, fsamp,
 
 def _rotated_spectra(h, vp, vs, rho, qp, qs, p_sdeg, gauss_a, nsamp, fsamp,
                      tshift, nsv, poisson, wave_type, fref, flattening,
-                     device):
+                     device, options=0, cut=None, plain=False):
     """:func:`synrf_batch` up to the spectral division: the rotated
     (zr, zi, rr, ri) planes (:func:`rotate`) and the function that turns
     a spectrum's (re, im) planes into time series under the Gauss
-    low-pass and time shift."""
+    low-pass and time shift; ``cut`` frequency lanes (default the
+    Gauss cut), the responses under the ``options`` bitmask; ``plain``
+    runs the kernels' twins on any device."""
     from bayhunter_tpu_torch.ops import prep, resp
+    if plain:
+        rf_operands, run, run_q = (prep.rf_operands_plain, resp.resp_plain,
+                                   resp.resp_q_plain)
+    else:
+        rf_operands, run, run_q = prep.rf_operands, resp.resp, resp.resp_q
 
-    if not flattening:
-        raise NotImplementedError('synrf_batch without earth flattening '
-                                  'is not ported yet')
     if device is not None:
         dev = torch.device(device)
     else:
         dev = h.device if torch.is_tensor(h) else torch.device('cuda')
-    h_t, vp_t, vs_t, rho_t = (_on_device(x, dev).T.contiguous()
+    dt = (torch.float64 if dev.type == 'cpu' and torch.is_tensor(h)
+          and h.dtype == torch.float64 else torch.float32)
+    h_t, vp_t, vs_t, rho_t = (_on_device(x, dev, dtype=dt).T.contiguous()
                               for x in (h, vp, vs, rho))
     nl, C = h_t.shape
     p_skm = float(p_sdeg) * DEG_PER_KM
-    coefs, pack = prep.rf_operands(h_t, vp_t, vs_t, rho_t, p_skm, wave_type)
-    cut = gauss_cut(nsamp, fsamp, gauss_a)
+    coefs, pack = rf_operands(h_t, vp_t, vs_t, rho_t, p_skm, wave_type,
+                              flattening)
+    nfreq = nsamp // 2 + 1
+    cut = gauss_cut(nsamp, fsamp, gauss_a) if cut is None else cut
     scalar_q = isinstance(qp, (int, float)) and isinstance(qs, (int, float))
     if scalar_q and (float(qp), float(qs), float(fref)) == (
             QP_UNIFORM, QS_UNIFORM, FREF):
-        response = resp.resp(coefs, pack, cut, nsamp, fsamp, wave_type)
+        response = run(coefs, pack, cut, nsamp, fsamp, wave_type, options)
     else:
-        qp_t, qs_t = (_on_device(q, dev, (nl, C)) if isinstance(q, (int,
-                                                                    float))
-                      else _on_device(q, dev).T.contiguous()
+        qp_t, qs_t = (_on_device(q, dev, (nl, C), dt)
+                      if isinstance(q, (int, float))
+                      else _on_device(q, dev, dtype=dt).T.contiguous()
                       for q in (qp, qs))
-        response = resp.resp_q(coefs, pack, qp_t, qs_t, cut, nsamp, fsamp,
-                               wave_type, fref)
-    nsv_c, poisson_c = (_on_device(x, dev, (C,)) for x in (nsv, poisson))
+        response = run_q(coefs, pack, qp_t, qs_t, cut, nsamp, fsamp,
+                         wave_type, fref, options)
+    nsv_c, poisson_c = (_on_device(x, dev, (C,), dt) for x in (nsv, poisson))
     vp_top = nsv_c * torch.sqrt((1.0 - poisson_c) / (0.5 - poisson_c))
     rotated = rotate(*response, pack[pack_offsets(nl)['p']], vp_top, nsv_c,
                      wave_type)
-    dft = (dft_tables(cut, nsamp, fsamp, tshift, gauss_a, dev)
-           if cut < nsamp // 2 + 1 else None)
+    dft = (dft_tables(cut, nsamp, fsamp, tshift, gauss_a, dev, dt)
+           if cut < nfreq else None)
 
     def series(re, im):
         return inverse_transform(re, im, nsamp, fsamp, tshift, gauss_a, dft)
@@ -635,19 +828,23 @@ def _rotated_spectra(h, vp, vs, rho, qp, qs, p_sdeg, gauss_a, nsamp, fsamp,
 
 def synrf(h, vp, vs, rho, qp, qs, p_sdeg, gauss_a, nsamp, fsamp, tshift,
           nsv, poisson, wave_type=P_WAVE, fref=FREF, flattening=True,
-          device=None):
+          options=0, device=None):
     """(fz, fr, rf), each (nsamp,), of one model of (NL,) layer arrays,
-    as the JAX package's ``synrf`` returns them: the RF of
-    :func:`synrf_batch` with C = 1 (``qp``, ``qs`` (NL,) or scalars),
-    and the rotated Z and R traces it deconvolves under the same Gauss
+    as the JAX package's ``synrf`` returns them: the RF of the batched
+    forward with C = 1 (``qp``, ``qs`` (NL,) or scalars) over all
+    nsamp/2 + 1 frequencies and the inverse FFT, as the JAX ``synrf``
+    computes it (:func:`synrf_batch` keeps the Gauss-cut lanes), and
+    the rotated Z and R traces it deconvolves under the same Gauss
     low-pass and time shift (for SV incidence the two swap roles, as
-    in the JAX package)."""
+    in the JAX package).  ``options`` is the bitmask of
+    SUPPRESS_MULTIPLES and WITHOUT_ANELASTICITY; ``flattening`` False
+    takes the layers as they are."""
     def one(x):
         return x if isinstance(x, (int, float)) else (
             x[None] if torch.is_tensor(x) else np.asarray(x)[None])
     rotated, series = _rotated_spectra(
         one(h), one(vp), one(vs), one(rho), one(qp), one(qs), p_sdeg,
         gauss_a, nsamp, fsamp, tshift, nsv, poisson, wave_type, fref,
-        flattening, device)
+        flattening, device, options, nsamp // 2 + 1)
     return tuple(series(*planes)[0] for planes in (
         rotated[:2], rotated[2:], divide(*rotated)))

@@ -27,7 +27,12 @@ has its own slowness, wave type and Gauss-cut tables, and the model
 kernel builds one operand set per RF target and one dispersion set per
 flattening present.  The optional mantle prior (vs threshold, mantle
 vp/vs) applies on the cold path (``voronoi_to_layers``) and in K1.  A
-custom target (no dispersion or RF ref) is not ported.
+custom target (no dispersion or RF ref) calls its plugin's batched
+forward ``run_model_torch(h, vp, vs, rho) -> y``: (C, NL) padded layer
+tensors on the chains' device in (halfspace last, zero-thickness
+padding), a (C, ndata) tensor out, non-finite values marking a failed
+forward (``templates/myfwd.py``); its layers come from
+``voronoi_to_layers`` on the cold path and from K1 in a step.
 
 Kernels on each path: the cold evaluation runs K4 (Rayleigh) or K5
 (Love) for every secular evaluation of its counting search and
@@ -35,7 +40,8 @@ refinement, and K6 then K3 over all nsamp/2 + 1 frequencies for each
 RF target; a warm step runs K1 (its spherical kernel when a target is
 spherical), K2 per dispersion target (a group target's 2P lanes with
 12 bisections; a spherical Love target on K1's Love density plane) and
-K3 over the Gauss-cut frequencies per RF target.
+K3 over the Gauss-cut frequencies per RF target; a custom target adds no
+kernel (K1 returns the layers).
 """
 
 import numpy as np
@@ -115,11 +121,15 @@ class TargetSpec:
             self.dft = _rf.dft_tables(self.cut, self.nsamp, self.fsamp,
                                       self.tshift, self.gauss_a, device)
         else:
-            raise NotImplementedError(
-                'custom target %r: its forward plugin must define '
-                'run_model_jax(h, vp, vs, rho) -> y in the JAX package '
-                '(templates/myfwd.py); the PyTorch port has no forward '
-                'hook for custom plugins yet' % target.ref)
+            self.forward = getattr(plugin, 'run_model_torch', None)
+            if self.forward is None:
+                raise NotImplementedError(
+                    'custom target %r: its forward plugin must define '
+                    'run_model_torch(h, vp, vs, rho) -> y, the batched '
+                    'counterpart of the JAX package\'s run_model_jax: '
+                    '(C, NL) padded layer tensors in, a (C, ndata) tensor '
+                    'out, non-finite values marking a failed forward (see '
+                    'bayhunter_tpu_torch/templates/myfwd.py)' % target.ref)
         if self.cov == 'gauss':
             self.dof_correction = bool(dof_correction)
             w, logdet = lk.gauss_whitener(corr_value, self.ndata,
@@ -201,6 +211,8 @@ class Evaluator:
         # the model kernel builds one set per flattening present
         self.swd_specs = tuple((s.iwave, s.flsph) for s in self.specs
                                if s.kind == 'swd')
+        # a custom target's forward takes the layered model from K1
+        self.layers = any(s.kind == 'custom' for s in self.specs)
         self.priors = _prep.ModelPriors(
             int(priors['layers'][0]), int(priors['layers'][1]),
             float(priors['vs'][0]), float(priors['vs'][1]),
@@ -240,6 +252,13 @@ class Evaluator:
     @staticmethod
     def _empty(C, device):
         return torch.zeros((C, 0), dtype=DTYPE, device=device)
+
+    @staticmethod
+    def _custom(spec, h, vp, vs, rho):
+        """(y, tvalid) of a custom target's forward on (C, NL) layers."""
+        y = torch.as_tensor(spec.forward(h, vp, vs, rho), dtype=DTYPE,
+                            device=h.device)
+        return y, torch.isfinite(y).all(dim=-1)
 
     def _rf_time_series(self, spec, response, pack, cold):
         rf = _rf.receiver_function(response, pack, self.nl, spec.nsamp,
@@ -281,6 +300,13 @@ class Evaluator:
                 tvalids.append(~err)
                 cache.append((y, roots, slopes))
                 continue
+            if spec.kind == 'custom':
+                y, tvalid = self._custom(spec, h, vp, vs_l, rho)
+                ys.append(y)
+                tvalids.append(tvalid)
+                cache.append((y, self._empty(C, vs.device),
+                              self._empty(C, vs.device)))
+                continue
             coefs, pack = _prep.rf_operands(
                 *(x.T.contiguous() for x in (h, vp, vs_l, rho)), spec.p_skm,
                 spec.wave_type)
@@ -307,11 +333,13 @@ class Evaluator:
         """Warm evaluation of transposed (NL, C) proposals through the
         three kernels: K1 model operands, K2 walker per dispersion
         target on K1's planes (``warm``: a ``swd.WARM_*`` setting), K3
-        response per RF target on its own K1 operand set.  The last
-        result is the kernel's prior validity."""
+        response per RF target on its own K1 operand set, a custom
+        target's forward on K1's layers.  The last result is the
+        kernel's prior validity."""
         C = vs_t.shape[1]
-        mvalid, swd_ops, rf_ops = _prep.model_operands(
-            vs_t, z_t, n, vpvs, self.priors, self.rf_specs, self.swd_specs)
+        mvalid, swd_ops, rf_ops, *layers = _prep.model_operands(
+            vs_t, z_t, n, vpvs, self.priors, self.rf_specs, self.swd_specs,
+            self.layers)
         swd_ops, rf_ops = iter(swd_ops), iter(rf_ops)
         ys, tvalids, new_cache = [], [], []
         for spec, (_, roots, slopes) in zip(self.specs, cache):
@@ -325,6 +353,13 @@ class Evaluator:
                 ys.append(y)
                 tvalids.append(tvalid)
                 new_cache.append((y, c, slopes_n))
+                continue
+            if spec.kind == 'custom':
+                y, tvalid = self._custom(spec, *(x.T for x in layers[0]))
+                ys.append(y)
+                tvalids.append(tvalid)
+                new_cache.append((y, self._empty(C, y.device),
+                                  self._empty(C, y.device)))
                 continue
             coefs, pack = next(rf_ops)
             response = _resp.resp(coefs, pack, spec.cut, spec.nsamp,

@@ -5,29 +5,29 @@
 Builds the port's CUDA kernels from ``bayhunter_tpu_torch/csrc`` with
 nvcc (one process per source, started together): K1 model operands, K2
 warm root walker (Rayleigh and Love), K3 RF response (uniform Q, P and
-SV), K3r RF response (per-layer Q, P and SV), K4/K5 Rayleigh and Love
-secular values, K6 RF operands.  Checks each against its plain PyTorch
-twin on the card at the main paths' shapes (10,240 chains, 21 layer
-slots; K1 with one and with two RF targets, also on 2,048 chains; K4/K5
-on the first 64-candidate counting block of 21 periods of 10,240 grown
-models, and on one cold-init chunk of 2,048 initial single-layer models
-as ``init_states_host`` draws them at the cold search's three grids,
-sign 0, counting block and refinement; K6 for P and SV on 10,240 models
-and on that chunk; K3 at the warm 99 and the cold 257 frequencies; K3r
-at 99 frequencies on path A's models and Q), timing both with CUDA
-events (K1, K6, and K4/K5 on the cold chunk: the kernel's device time
-by torch.profiler, after the main paths, and the wrapper's back-to-back
-calls by CUDA events beside it; K4/K5 at 10,240 chains by both) beside
-the kernel's bound (the larger of its bytes over 3.35 TB/s and its
-operations over 67 TFLOP/s, the H100's float32 peak, counted from this
-run's inputs), and prints K1's, K2's, K3's, K4/K5's and K6's launch
-geometry (K4/K5 with the occupancy calculator's resident warps per SM)
-and K2's and K3's executed-per-useful lane work.  Runs the ragged
-shapes of ``tests/test_torch_cuda.py`` (C = 1, 37, 10,237 chains; K2 at
-R = 1, 21, 60 periods, K3/K3r at F = 1, 99, 257 lanes; K4/K5 on C = 1,
-7, 2,051 chains of 2, 21, 64 slots) bit for bit against the twins.
-Checks the tutorial
-truth model against the committed golden data
+SV, each solver-options arm), K3r RF response (per-layer Q, P and SV,
+each options arm), K4/K5 Rayleigh and Love secular values, K6 RF
+operands (with and without the earth flattening). Checks each against
+its plain PyTorch twin on the card at the main paths' shapes (10,240
+chains, 21 layer slots; K1 with one and with two RF targets, also on
+2,048 chains; K4/K5 on the first 64-candidate counting block of 21
+periods of 10,240 grown models, and on one cold-init chunk of 2,048
+initial single-layer models as ``init_states_host`` draws them at the
+cold search's three grids, sign 0, counting block and refinement; K6 for
+P and SV on 10,240 models and on that chunk; K3 at the warm 99 and the
+cold 257 frequencies; K3r at 99 frequencies on path A's models and Q),
+timing both with CUDA events (K1, K6, and K4/K5 on the cold chunk: the
+kernel's device time by torch.profiler, after the main paths, and the
+wrapper's back-to-back calls by CUDA events beside it; K4/K5 at 10,240
+chains by both) beside the kernel's bound (the larger of its bytes over
+3.35 TB/s and its operations over 67 TFLOP/s, the H100's float32 peak,
+counted from this run's inputs), and prints K1's, K2's, K3's, K4/K5's
+and K6's launch geometry (K4/K5 with the occupancy calculator's resident
+warps per SM) and K2's and K3's executed-per-useful lane work. Runs the
+ragged shapes of ``tests/test_torch_cuda.py`` (C = 1, 37, 10,237 chains;
+K2 at R = 1, 21, 60 periods, K3/K3r at F = 1, 99, 257 lanes; K4/K5 on C
+= 1, 7, 2,051 chains of 2, 21, 64 slots) bit for bit against the twins.
+Checks the tutorial truth model against the committed golden data
 (``tests/fixtures/st3_*.dat``): the cold Rayleigh and Love solves (K4,
 K5), the cold P and S receiver functions (K6, K3 at 257 frequencies),
 the warm walker for both wave types (K2), the warm P and S receiver
@@ -93,6 +93,22 @@ Then it drives the inversion as users run it,
     iterations, ``maxmodels`` 50,000, checked against recovery bands
     (``RECOVERY``, from ``tools/tutorial_recovery.py`` on the card).
 
+Then (h), the receiver-function forms and custom targets: K6's
+unflattened arm (``rf_prep_kernel<false>``, P and SV, 10,240 grown
+models and the 2,048-chain cold chunk), K3's and K3r's options arms
+(``rf.SUPPRESS_MULTIPLES``, ``rf.WITHOUT_ANELASTICITY`` and both; P and
+SV at 10,240 chains) and K1's layer planes for a custom target (flat
+and spherical kernel, 10,240 and 2,048 chains), each bit for bit against
+its twin into NaN-filled memory and timed beside its default arm; then,
+with the counts set to 0, ``synrf_batch(flattening=False)`` and
+``synrf(options=k)`` of the tutorial model against the float64 forward
+on the CPU, ``rf_pd.invert_rf`` in float32 (four perturbed tutorial
+models, the rms trace falling by ``RF_PD_FACTOR``, no kernel launched),
+and ``MCMC_Optimizer`` on Rayleigh phase + P-RF + a custom target with
+the port's template plugin at ``CUSTOM_CHAINS`` chains (K1 with its
+layer planes, K2, K3 in the steps; finite logL of the chains that
+accepted).
+
 Last it profiles the late steps of ``tutorial``: host-clock time per
 move, and under ``torch.profiler`` the device's busy and idle share and
 each kernel's device time, and each configuration's cold init: its wall
@@ -107,6 +123,7 @@ Any mismatch or exception ends the run with a non-zero exit; without a
 CUDA device it exits non-zero before doing anything.
 """
 
+import itertools
 import json
 import os
 import platform
@@ -132,7 +149,8 @@ COLD_CHUNK = 2048      # chains per cold-init chunk (evaluator.COLD_CHUNK)
 KERNEL_NAMES = {'K1': '::prep_kernel<', 'K2': 'walk_kernel',
                 'K3': 'resp_kernel', 'K4': 'secular_kernel<2>',
                 'K5': 'secular_kernel<1>', 'K6': 'rf_prep_kernel',
-                'K1_sph': '::prep_sph_kernel<'}
+                'K1_sph': '::prep_sph_kernel<',
+                'K6_unflat': 'rf_prep_kernel<false>'}
 SIX_LATE_CYCLES = 32  # timed late cycles of each six-target path
 PUBLIC_CALLS = 3      # surfdisp_batch calls per case of phase (f)
 # (e): K1's dispersion sets — the flat set, the spherical Rayleigh set
@@ -158,6 +176,16 @@ TUTORIAL_SEED = 1
 # the recovery check, depend on the host's speed
 TUTORIAL_SEGMENT = 1024
 MANTLE = (4.1, 1.8)
+# (h): the RF solver options (rf.SUPPRESS_MULTIPLES = 1,
+# rf.WITHOUT_ANELASTICITY = 2), the custom-target run's chains and
+# iterations, and the bound on rf_pd.invert_rf's rms[-1] / rms[0] in
+# float32 (the four models fell by 3.4e-5 to 1.8e-4 on the CPU in
+# float32, where the float32 RF's rounding sets the floor)
+OPTIONS = {1: 'SUPPRESS_MULTIPLES', 2: 'WITHOUT_ANELASTICITY',
+           3: 'SUPPRESS_MULTIPLES | WITHOUT_ANELASTICITY'}
+CUSTOM_CHAINS = 1024
+CUSTOM_ITERS = (256, 256)
+RF_PD_FACTOR = 1e-3
 SNAP_NAMES = ('models', 'likes', 'misfits', 'noise', 'vpvs')
 # (d)'s recovery bands, set from tools/tutorial_recovery.py runs of
 # seeds 1-11 on the card (PERF.md section 4) around the reference run of
@@ -186,6 +214,8 @@ OPS = dict(
     haskell_fixed=12,     # wavenumber, halfspace start
     walk_eval=12,         # walker bookkeeping around one evaluation
     resp_layer=450,       # resp.cu: two phase terms, the 2x2 algebra
+    resp_layer_suppress=150,  # resp.cu SUPPRESS arm: two phase terms,
+    #                           columns and one 2x2 product
     resp_fixed=500,       # resp.cu: Q factors, surface layer, closure
     resp_q_phase=18,      # resp.cu phase_q over phase: the complex
     #                       velocity (6), its square (6), its inverse (6)
@@ -309,6 +339,7 @@ def profile_kernels(torch, dev, kernels):
     launches slower, which would lower the rates measured after it."""
     calls = profiled_calls(torch, *phase_inputs(torch, dev))
     calls.update(WALK_CALLS)
+    calls.update(RF_FORM_CALLS)
     for k in kernels:
         name = KERNEL_NAMES.get(k['counter'], KERNEL_NAMES[k['counter'][:2]])
         if k['ms'] is None:
@@ -941,6 +972,283 @@ def check_new_arms(torch, dev, ev, nuclei, layers, props, cm, bx, top,
     return out
 
 
+RF_FORM_CALLS = {}   # (h) record counter -> its wrapper call (profiled)
+
+
+def resp_ops(cut, depth, q, options):
+    """Float32 operations of a K3 (``q`` False) or K3r launch of ``cut``
+    lanes over chains of skip depth ``depth`` in arm ``options``."""
+    layer = OPS['resp_layer_suppress'] if options & 1 else OPS['resp_layer']
+    phase_q = 2 * OPS['resp_q_phase'] if q and not options & 2 else 0
+    fixed = OPS['resp_fixed'] + (NL * OPS['resp_q_slot'] if q else 0)
+    return cut * float((fixed + phase_q + depth * (layer + phase_q)).sum())
+
+
+def check_rf_forms(torch, dev):
+    """(h), the kernels: K6's unflattened arm (``rf_prep_kernel<false>``)
+    for P and SV at 10,240 grown models and on the cold chunk; K3's and
+    K3r's options arms 1-3 for P and SV at 10,240 chains (K6's operands
+    of the grown models at the Gauss-cut lanes; K3r with path A's Q
+    planes); and K1's layer planes for a custom target (the flat kernel
+    with Rayleigh phase + P-RF, and the spherical kernel with spherical
+    targets only, which then writes the flat set) at 10,240 and 2,048
+    chains; each bit for bit against its twin into NaN-filled memory,
+    timed by CUDA events beside its default arm (K6 and K1 also by the
+    profiler, after the main paths).  Returns the records K6_unflat,
+    K3_o1..3, K3r_o1..3 and K1_layers."""
+    from bayhunter_tpu_torch.ops import prep, resp, rf
+
+    ev, nuclei, planes, cold = phase_inputs(torch, dev)
+    cplanes = tuple(x.T.contiguous() for x in cold)
+    pspec = ev.specs[1]
+    p = pspec.p_skm
+    out = []
+    k6, errs = {}, []
+    for wave in (rf.P_WAVE, rf.SV_WAVE):
+        for tag, pl in (('%d models' % C_MAIN, planes),
+                        ('%d-chain cold chunk' % COLD_CHUNK, cplanes)):
+            cuda_cases()._poison(dev)
+            k = prep.rf_operands(*pl, p, wave, flattening=False)
+            errs.append(check_bitwise(
+                torch, 'K6 RF operands, unflattened arm (%s, %s)'
+                % ('PS'[wave], tag), k,
+                prep.rf_operands_plain(*pl, p, wave, flattening=False)))
+            k6.setdefault(wave, k)
+    off = rf.pack_offsets(NL)
+    if not torch.equal(k6[rf.P_WAVE][1][off['vs']:off['vs'] + NL],
+                       planes[2]):
+        raise AssertionError('the unflattened pack does not carry the '
+                             'raw vs')
+    RF_FORM_CALLS['K6_unflat'] = lambda: prep.rf_operands(
+        *planes, p, flattening=False)
+    ms = {arm: timed(lambda: prep.rf_operands(*planes, p, flattening=arm),
+                     KERNEL_REPS) for arm in (True, False)}
+    log('K6 wrapper by CUDA events, 10,240 models: flattened %.4f ms, '
+        'unflattened %.4f ms' % (ms[True], ms[False]))
+    out.append(entry(
+        'K6_unflat', 'K6 RF operands, unflattened arm', 'prep.cu',
+        'pallas_prep.py:141', max(errs), None,
+        timed(lambda: prep.rf_operands_plain(*planes, p, flattening=False),
+              3),
+        nbytes(*planes, *k6[rf.P_WAVE]),
+        C_MAIN * (OPS['rf_fixed'] + NL * OPS['rf_t0_slot']
+                  + (NL - 1) * OPS['rf_interface']), ms[False]))
+
+    # K3 and K3r in each options arm, P and SV
+    _, qp, qs = grown_layers(torch, dev)
+    qp, qs = qp.T.contiguous(), qs.T.contiguous()
+    cut = pspec.cut
+    flat_ops = {wave: prep.rf_operands(*planes, p, wave)
+                for wave in (rf.P_WAVE, rf.SV_WAVE)}
+    for q, kernel, plain, name in (
+            (False, resp.resp, resp.resp_plain, 'K3'),
+            (True, resp.resp_q, resp.resp_q_plain, 'K3r')):
+        times = {}
+        for wave in (rf.P_WAVE, rf.SV_WAVE):
+            coefs, pack = flat_ops[wave]
+            lead = (coefs, pack) + ((qp, qs) if q else ())
+            tail = (rf.FREF,) if q else ()
+            depth = pack[off['depth']]
+            if q:
+                depth = rf.q_depth(depth, qp, qs)
+            depth = depth.clamp(max=NL - 2).double()
+            for k in (0,) + tuple(OPTIONS):
+                args = lead + (cut, pspec.nsamp, pspec.fsamp, wave) + tail \
+                    + (k,)
+                times[wave, k] = timed(lambda: kernel(*args), KERNEL_REPS)
+                if not k:
+                    continue
+                cuda_cases()._poison(dev)
+                err = check_bitwise(
+                    torch, '%s RF response, %s (%s, %d lanes)'
+                    % (name, OPTIONS[k], 'PS'[wave], cut), kernel(*args),
+                    plain(*args))
+                if wave == rf.SV_WAVE:
+                    continue
+                out.append(entry(
+                    '%s_o%d' % (name, k), '%s RF response, %s (%d lanes)'
+                    % (name, OPTIONS[k], cut), 'resp.cu',
+                    'pallas_rf.py:288', err, times[wave, k],
+                    timed(lambda: plain(*args), 3),
+                    nbytes(pack, *((qp, qs) if q else ()), *kernel(*args))
+                    + 4 * 32 * C_MAIN * float((depth + 1).mean()),
+                    resp_ops(cut, depth, q, k)))
+        log('%s by CUDA events, 10,240 chains, %d lanes, ms by (wave, '
+            'options): %s' % (name, cut, json.dumps(
+                {'%s %d' % ('PS'[w], k): t for (w, k), t in times.items()})))
+
+    # K1's layer planes for a custom target beside Rayleigh phase and
+    # P-RF: the flat kernel, and the spherical kernel, which writes the
+    # flat set only for them
+    errs = []
+    for swd_specs, tag in ((((2, 0),), 'flat kernel'),
+                           (((2, 1),), 'spherical kernel')):
+        for C in (C_MAIN, COLD_CHUNK):
+            part = tuple(x[..., :C].contiguous() for x in nuclei) + (
+                ev.priors, ev.rf_specs[:1], swd_specs)
+            cuda_cases()._poison(dev)
+            kv, ksw, krf, klay = prep.model_operands(*part, layers=True)
+            pv, psw, prf, play = prep.model_operands_plain(*part,
+                                                           layers=True)
+            if not torch.equal(kv, pv):
+                raise AssertionError('K1 (layer planes) validity differs')
+            errs.append(check_bitwise(
+                torch, 'K1 model operands with the layer planes (%s), %d '
+                'chains' % (tag, C), klay + ksw[0][:4] + krf[0],
+                play + psw[0][:4] + prf[0]))
+    args = nuclei + (ev.priors, ev.rf_specs[:1], ((2, 0),))
+    RF_FORM_CALLS['K1_layers'] = lambda: prep.model_operands(*args,
+                                                             layers=True)
+    kv, ksw, krf, _ = RF_FORM_CALLS['K1_layers']()
+    out.append(entry(
+        'K1_layers', 'K1 model operands with the layer planes', 'prep.cu',
+        'pallas_prep.py:315', max(errs), None,
+        timed(lambda: prep.model_operands_plain(*args, layers=True), 3),
+        nbytes(*nuclei, kv, *ksw[0][:4], *krf[0]),
+        C_MAIN * (OPS['model_fixed'] + NL * (OPS['model_slot']
+                                             + OPS['rf_flatten_slot'])
+                  + OPS['rf_fixed'] + NL * OPS['rf_t0_slot']
+                  + (NL - 1) * OPS['rf_interface']),
+        timed(RF_FORM_CALLS['K1_layers'], KERNEL_REPS)))
+    return out
+
+
+def rf_forms_path(torch, dev):
+    """(h), the forward: ``synrf_batch(flattening=False)`` and
+    ``synrf(options=k)``, k = 0..3, P and SV, with the default Q (K3)
+    and with a per-layer Q model (K3r), of the tutorial model on the
+    card against the plain functions in float64 on the CPU (within
+    1e-4, the float32 response's rounding), then ``rf_pd.invert_rf`` in
+    float32 on the card: four models perturbed from the tutorial model,
+    the rms trace falling by ``RF_PD_FACTOR`` and no kernel launched.
+    Returns the launch counts of the synrf calls."""
+    from bayhunter_tpu_torch.ops import rf, rf_pd
+
+    reset_counts()
+    h, vp, vs, rho = (x[:, 0] for x in tutorial_layers(torch, dev))
+    vs0 = float(vs[0])
+    vpvs0 = float(vp[0]) / vs0
+    poisson = (2.0 - vpvs0 ** 2) / (2.0 - 2.0 * vpvs0 ** 2)
+    cpu = tuple(x.double().cpu() for x in (h, vp, vs, rho))
+    # Qs rising through the model's four layers, the halfspace's below
+    qs = torch.full((NL,), 400.0, device=dev)
+    qs[:3] = torch.tensor([100.0, 225.0, 300.0])
+    q_models = {'': (500.0, 225.0), ' per-layer Q': (2.25 * qs, qs)}
+    errs = {}
+    for wave in (rf.P_WAVE, rf.SV_WAVE):
+        y = rf.synrf_batch(*(x[None] for x in (h, vp, vs, rho)), 500.0,
+                           225.0, 6.4, 1.0, 512, 5.0, 5.0, vs0, poisson,
+                           wave_type=wave, flattening=False)
+        want = rf.synrf_batch(*(x[None] for x in cpu), 500.0, 225.0, 6.4,
+                              1.0, 512, 5.0, 5.0, vs0, poisson,
+                              wave_type=wave, flattening=False,
+                              device='cpu')
+        errs['synrf_batch unflattened ' + 'PS'[wave]] = float(
+            (y.double().cpu() - want).abs().max())
+        for (qtag, (qp, qs_)), k in itertools.product(q_models.items(),
+                                                      range(4)):
+            got = rf.synrf(h, vp, vs, rho, qp, qs_, 6.4, 1.0, 512, 5.0, 5.0,
+                           vs0, poisson, wave_type=wave, options=k)
+            want = rf.synrf(*cpu, *(q if isinstance(q, float)
+                                    else q.double().cpu() for q in (qp, qs_)),
+                            6.4, 1.0, 512, 5.0, 5.0, vs0, poisson,
+                            wave_type=wave, options=k, device='cpu')
+            errs['synrf options %d %s%s' % (k, 'PS'[wave], qtag)] = max(
+                float((a.double().cpu() - b).abs().max())
+                for a, b in zip(got, want))
+    counts = launch_counts()
+    log('(h) tutorial model on the card against float64 on the CPU, max '
+        '|err| ' + json.dumps(errs) + ' (limit 1e-4 each), launches '
+        + json.dumps(counts))
+    if not all(e <= 1e-4 for e in errs.values()):
+        raise AssertionError('(h): the RF forms miss the float64 forward')
+    missing = [c for c in ('K6', 'K6_unflat', 'K3', 'K3_o1', 'K3_o2',
+                           'K3_o3', 'K3r', 'K3r_o1', 'K3r_o2', 'K3r_o3')
+               if counts[c] == 0]
+    if missing:
+        raise AssertionError('(h): kernels %s never launched' % missing)
+
+    # rf_pd in float32 on the card: PyTorch operations, no kernel
+    nl = 8
+    hp = torch.zeros(nl, device=dev)
+    hp[:3] = torch.tensor([5., 23., 8.])
+    vsp = torch.full((nl,), 4.4, device=dev)
+    vsp[:4] = torch.tensor([2.7, 3.6, 3.8, 4.4])
+    vpp = vsp * 1.73
+    obs = rf.synrf(hp, vpp, vsp, vpp * 0.32 + 0.77, 500.0, 225.0, 6.4, 1.0,
+                   256, 5.0, 5.0, 2.7, poisson)[2][:128]
+    rs = np.random.RandomState(3)
+    dvs = rs.uniform(-0.08, 0.08, (4, nl)).astype(np.float32)
+    dvs[:, 4:] = dvs[:, 3:4]
+    vs_init = vsp[None] + torch.tensor(dvs, device=dev)
+    before = launch_counts()
+    t0 = time.perf_counter()
+    vs_fit, rms = rf_pd.invert_rf(
+        obs[None].expand(4, -1), hp[None].expand(4, -1), vs_init * 1.73,
+        vs_init, 500.0, 225.0, 6.4, 1.0, 256, 5.0, 5.0, 2.7, poisson,
+        nused=128, niter=6, rcond=1e-6, damping=0.01)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    ratio = (rms[:, -1] / rms[:, 0]).cpu().numpy()
+    log('(h) rf_pd.invert_rf, float32 on the card, 4 models: rms traces %s, '
+        'rms[-1] / rms[0] %s (limit %g), max |vs - truth| %.3g km/s, %.2f s'
+        % (json.dumps(rms.cpu().numpy().tolist()), ratio.tolist(),
+           RF_PD_FACTOR, float((vs_fit - vsp).abs()[:, :4].max()), dt))
+    if not (np.all(ratio < RF_PD_FACTOR)
+            and bool(torch.isfinite(vs_fit).all())):
+        raise AssertionError('(h): rf_pd did not converge')
+    if launch_counts() != before:
+        raise AssertionError('(h): rf_pd launched a kernel')
+    return counts
+
+
+def optimizer_custom(torch, tmp):
+    """(h), the inversion: ``MCMC_Optimizer`` on Rayleigh phase + P-RF
+    (the tutorial's targets and noise) + a custom target whose plugin is
+    the port's template ``templates/myfwd.py``, at ``CUSTOM_CHAINS``
+    chains for ``CUSTOM_ITERS`` iterations: K1 (with its layer planes),
+    K2 and K3 in the steps, finite logL for the chains that accepted a
+    proposal, the ``.npy`` contract.  Returns (stats, launches at init,
+    launches)."""
+    from bayhunter_tpu_torch import Targets
+    from bayhunter_tpu_torch.templates import myfwd
+    joint, _ = tutorial_targets()
+    x = np.linspace(1.0, 10.0, 10)
+    plugin = myfwd.MyForwardModel(x, 'mine')
+    y = plugin.run_model([5., 23., 8., 0.], [4.7, 6.2, 6.6, 7.6],
+                         [2.7, 3.6, 3.8, 4.4], [2.3, 2.8, 2.9, 3.2])[1]
+    custom = Targets.SingleTarget(
+        x, y + np.random.RandomState(5).normal(0.0, 0.01, x.size), 'mine')
+    custom.noiseref = 'swd'
+    custom.update_plugin(plugin)
+    joint = Targets.JointTarget(joint.targets + [custom])
+    priors, ip = tutorial_params()
+    ip.update(nchains=CUSTOM_CHAINS, iter_burnin=CUSTOM_ITERS[0],
+              iter_main=CUSTOM_ITERS[1], maxmodels=16,
+              savepath=os.path.join(tmp, 'h'))
+    opt, wall, at_init, counts = run_optimizer(torch, joint, priors, ip,
+                                               OPT_SEED)
+    kinds = [spec.kind for spec in opt.eval_fn.specs]
+    st = opt.final_states
+    accepted = st.accepted.sum(dim=1) > 0
+    stats = optimizer_stats(opt, wall)
+    stats.update(kinds=kinds, snapshots=check_contract(opt),
+                 chains_accepted=int(accepted.sum()), launches=counts)
+    log('optimizer (h), Rayleigh phase + P-RF + custom target: '
+        + json.dumps(stats))
+    steps = {k: counts[k] - at_init[k]
+             for k in ('K1', 'K1_layers', 'K2_rayleigh', 'K3')}
+    if kinds != ['swd', 'rf', 'custom'] or not all(steps.values()):
+        raise AssertionError('(h): targets %s, launches in the steps %s'
+                             % (kinds, steps))
+    logl = st.logL[accepted]
+    if not (int(accepted.sum()) > 0 and bool(torch.isfinite(logl).all())
+            and bool((logl > -1e14).all())):
+        raise AssertionError('(h): logL not finite for the accepted '
+                             'chains')
+    return stats, at_init, counts
+
+
 def cold_chunk(torch, dev):
     """(C, NL) layer arrays h, vp, vs, rho of one cold-init chunk:
     ``COLD_CHUNK`` initial models as ``tutorial``'s
@@ -1110,7 +1418,25 @@ def launch_counts():
                 K3_sv=resp.resp.sv_launches, K3r=resp.resp_q.launches,
                 K3r_sv=resp.resp_q.sv_launches,
                 K4=swd.secular4.launches, K5=swd.secular1.launches,
-                K6=prep.rf_operands.launches)
+                K6=prep.rf_operands.launches,
+                K6_unflat=prep.rf_operands.unflat_launches,
+                K1_layers=prep.model_operands.layer_launches,
+                **option_counts())
+
+
+def option_counts():
+    """The options arms' launch counts: ``K3_o<k>``/``K3r_o<k>`` of
+    arm k (both waves), and ``K3_optP``/``K3_optSV`` (K3r likewise) the
+    launches of arms 1-3 by wave, which the arm-0 records leave out."""
+    from bayhunter_tpu_torch.ops import resp
+    out = {}
+    for name, w in (('K3', resp.resp), ('K3r', resp.resp_q)):
+        for k in OPTIONS:
+            out['%s_o%d' % (name, k)] = sum(w.option_launches[v][k]
+                                            for v in (0, 1))
+        out[name + '_optP'] = sum(w.option_launches[0][1:])
+        out[name + '_optSV'] = sum(w.option_launches[1][1:])
+    return out
 
 
 def reset_counts():
@@ -1119,6 +1445,10 @@ def reset_counts():
               resp.resp_q, swd.secular4, swd.secular1, prep.rf_operands):
         w.launches = 0
     prep.model_operands.sph_launches = 0
+    prep.model_operands.layer_launches = 0
+    prep.rf_operands.unflat_launches = 0
+    for w in (resp.resp, resp.resp_q):
+        w.option_launches = [[0] * 4, [0] * 4]
     for name in ('love', 'group', 'group_love', 'sph_love'):
         setattr(walk.warm_roots_walk, name + '_launches', 0)
     resp.resp.sv_launches = 0
@@ -1851,24 +2181,40 @@ def main():
                 raise AssertionError('%s: kernels %s never launched'
                                      % (name, missing))
             by_path[name] = (init_o, all_o, 1, mantle)
+        # (h): the receiver-function forms and a custom target
+        t_h = time.perf_counter()
+        kernels += check_rf_forms(torch, dev)
+        by_path['rf_forms'] = (zero, rf_forms_path(torch, dev), 0)
+        _, init_h, all_h = optimizer_custom(torch, tmp)
+        by_path['custom_target'] = (init_h, all_h, 1)
+        log('(h) took %.1f s' % (time.perf_counter() - t_h))
+        phase('rf forms and custom targets')
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # each record's launches on the paths: K1 by its number of RF
-    # operand sets and its arm; K3 at all frequencies only in the cold
-    # inits, at the Gauss-cut ones only in the cycles
+    # operand sets and its arm; K3 at all frequencies in the cold inits,
+    # the others (the public forward's and synrf's all-lane launches
+    # among them) with the warm records; the options arms and K6's
+    # unflattened arm apart from the default arms
     rules = dict(
-        K1=lambda i, t, n, m=False: t['K1'] if n == 1 and not m else 0,
+        K1=lambda i, t, n, m=False: (t['K1'] - t['K1_layers']
+                                     if n == 1 and not m else 0),
         K1_mantle=lambda i, t, n, m=False: t['K1'] if m else 0,
         K1_2rf=lambda i, t, n, m=False: (t['K1'] - t['K1_sph']
                                          if n == 2 else 0),
-        K3_warm=lambda i, t, n, m=False: (t['K3'] - t['K3_sv'])
-        - (i['K3'] - i['K3_sv']),
-        K3_cold=lambda i, t, n, m=False: i['K3'] - i['K3_sv'],
-        K3_sv=lambda i, t, n, m=False: t['K3_sv'] - i['K3_sv'],
-        K3r_p=lambda i, t, n, m=False: t['K3r'] - t['K3r_sv'],
-        K3r_sv=lambda i, t, n, m=False: t['K3r_sv'],
+        K3_warm=lambda i, t, n, m=False: (
+            t['K3'] - t['K3_sv'] - t['K3_optP'])
+        - (i['K3'] - i['K3_sv'] - i['K3_optP']),
+        K3_cold=lambda i, t, n, m=False: i['K3'] - i['K3_sv']
+        - i['K3_optP'],
+        K3_sv=lambda i, t, n, m=False: (t['K3_sv'] - t['K3_optSV'])
+        - (i['K3_sv'] - i['K3_optSV']),
+        K3r_p=lambda i, t, n, m=False: t['K3r'] - t['K3r_sv']
+        - t['K3r_optP'],
+        K3r_sv=lambda i, t, n, m=False: t['K3r_sv'] - t['K3r_optSV'],
         K4_cold=lambda i, t, n, m=False: i['K4'],
         K5_cold=lambda i, t, n, m=False: i['K5'],
+        K6=lambda i, t, n, m=False: t['K6'] - t['K6_unflat'],
         K6_cold=lambda i, t, n, m=False: i['K6'])
     phase('main paths')
     profile_kernels(torch, dev, kernels)

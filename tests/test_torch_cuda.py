@@ -28,8 +28,12 @@ flat set, the spherical set and the Love density plane in five
 combinations, with 0, 1 and 2 RF targets, the velocity-zone limits
 and the mantle prior; K2's group arm at 42, 120 and 130 lanes in every
 move class; K2 on the spherical set (Love on its density plane), phase
-and group lanes; and the public forward (``surfdisp``, ``SurfDisp``,
-``SynRF``) without a device argument against the tutorial goldens.
+and group lanes; the public forward (``surfdisp``, ``SurfDisp``,
+``SynRF``) without a device argument against the tutorial goldens; and
+the receiver-function forms bit for bit into NaN-filled memory (C = 1,
+37, 10,237): K6's unflattened arm (P and SV), K3's and K3r's options
+arms 1-3 (P and SV, F = 1, 99, 257), and K1's layer planes for a custom
+target without, with flat and with spherical dispersion targets.
 
 Needs an NVIDIA GPU and nvcc (marker ``cuda``); skipped elsewhere.  On
 a machine with a card:
@@ -803,3 +807,92 @@ def test_public_forward_defaults_to_the_card(dev):
         assert (swd.secular4.launches + swd.secular1.launches
                 + resp.resp.launches) > before
         assert float(np.abs(y - obs[:, 1]).max()) <= tol, ref
+
+
+# ----------------------------------------------------------------------
+# the receiver-function forms: K6's unflattened arm, K3's and K3r's
+# options arms, K1's layer planes for a custom target
+
+
+@pytest.mark.parametrize('C', [1, 37, 10237])
+def test_rf_operands_unflattened_bitwise(dev, C):
+    # K6's rf_prep_kernel<false> into NaN-filled memory, P and SV
+    planes, _ = _ragged_planes(dev, C, water=False)
+    for wave in (rf.P_WAVE, rf.SV_WAVE):
+        _poison(dev)
+        before = (prep.rf_operands.launches,
+                  prep.rf_operands.unflat_launches)
+        kc, kp = prep.rf_operands(*planes, P_SKM, wave, flattening=False)
+        assert (prep.rf_operands.launches,
+                prep.rf_operands.unflat_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+        pc, pp = prep.rf_operands_plain(*planes, P_SKM, wave,
+                                        flattening=False)
+        assert torch.equal(kc, pc) and torch.equal(kp, pp)
+        off = rf.pack_offsets(NL)
+        assert torch.equal(kp[off['h']:off['h'] + NL], planes[0])
+
+
+@pytest.mark.parametrize('q', [False, True], ids=['K3', 'K3r'])
+@pytest.mark.parametrize('options', [1, 2, 3])
+@pytest.mark.parametrize('C', [1, 37, 10237])
+def test_response_options_bitwise(dev, C, options, q):
+    # K3's and K3r's options arms at F = 1, 99, 257 lanes, P and SV, on
+    # K6's operands of models whose skip depth runs over 0..NL-2, into
+    # NaN-filled memory
+    planes, _ = _ragged_planes(dev, C, water=False)
+    qp, qs = _ragged_q(dev, C)
+    wrapper = resp.resp_q if q else resp.resp
+    for wave in (rf.P_WAVE, rf.SV_WAVE):
+        coefs, pack = prep.rf_operands(*planes, P_SKM, wave)
+        for F in (1, 99, 257):
+            _poison(dev)
+            before = wrapper.option_launches[wave][options]
+            if q:
+                args = (coefs, pack, qp, qs, F, 512, 5.0, wave, rf.FREF,
+                        options)
+                ko, po = resp.resp_q(*args), resp.resp_q_plain(*args)
+            else:
+                args = (coefs, pack, F, 512, 5.0, wave, options)
+                ko, po = resp.resp(*args), resp.resp_plain(*args)
+            assert wrapper.option_launches[wave][options] == before + 1
+            for a, b in zip(ko, po):
+                assert a.shape == (C, F)
+                assert bool(torch.isfinite(a).all())
+                assert torch.equal(a, b)
+    # each arm computes something else than arm 0
+    if C > 1:
+        args = (coefs, pack, 99, 512, 5.0, rf.SV_WAVE)
+        assert not torch.equal(resp.resp(*args, options=options)[0],
+                               resp.resp(*args)[0])
+
+
+@pytest.mark.parametrize('sets', ['none', 'flat', 'sph', 'sph_love'])
+@pytest.mark.parametrize('C', [1, 37, 10237])
+def test_model_operands_layer_planes_bitwise(dev, C, sets):
+    # K1 with a custom target: the layered (h, vp, vs, rho) planes beside
+    # every other output, without dispersion targets, with a flat one,
+    # and with spherical ones only (the spherical kernel then writes the
+    # flat set it otherwise skips), into NaN-filled memory
+    nuclei = _nuclei(dev, C)
+    swd_specs = {'none': (), 'flat': ((2, 0),), 'sph': ((2, 1),),
+                 'sph_love': ((2, 1), (1, 1))}[sets]
+    for priors, rf_specs in ((PRIORS, ()), (PRIORS_ZONES, RF_P),
+                             (PRIORS._replace(mantle=(4.1, 1.8)),
+                              RF_SPECS4[:2])):
+        _poison(dev)
+        before = prep.model_operands.layer_launches
+        kv, ksw, krf, klay = prep.model_operands(*nuclei, priors, rf_specs,
+                                                 swd_specs, layers=True)
+        assert prep.model_operands.layer_launches == before + 1
+        pv, psw, prf, play = prep.model_operands_plain(
+            *nuclei, priors, rf_specs, swd_specs, layers=True)
+        assert torch.equal(kv, pv)
+        for a, b in zip(klay, play):
+            assert a.shape == (NL, C) and torch.equal(a, b)
+        for kt, pt in zip(ksw, psw):
+            for a, b in zip(kt, pt):
+                if a is not None:
+                    assert torch.equal(a, b)
+        for a, b in zip(sum(krf, ()), sum(prf, ())):
+            assert torch.equal(a, b)

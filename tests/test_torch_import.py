@@ -1,8 +1,11 @@
-"""The PyTorch port imports without JAX (the forward plugins included),
-its kernel wrappers run their plain twins — launching nothing — for CPU
-tensors, the six-target spherical configuration and ``SynthObs``'s
-dispersion data run on the CPU, and an inversion through
-``MCMC_Optimizer`` on the CPU imports nothing of JAX either."""
+"""The PyTorch port imports without JAX (the forward plugins, the
+linearized RF inversion ``ops/rf_pd.py``, ``utils`` and the forward
+template ``templates/myfwd.py`` included) and without matplotlib, its
+kernel wrappers run their plain twins — launching nothing — for CPU
+tensors (the unflattened RF forward and the solver options among them),
+the six-target spherical configuration and ``SynthObs``'s dispersion
+data run on the CPU, and an inversion through ``MCMC_Optimizer`` on the
+CPU imports nothing of JAX either."""
 
 import os
 import subprocess
@@ -22,9 +25,13 @@ from bayhunter_tpu_torch import (config, diagnostics, optimizer, synthobs,
                                  utils, MCMC_Optimizer, Targets)
 from bayhunter_tpu_torch.forward import SurfDisp, SynRF
 from bayhunter_tpu_torch.forward import rf_plugin, swd_plugin
+from bayhunter_tpu_torch.ops import rf_pd
+from bayhunter_tpu_torch.templates import myfwd
+from bayhunter_tpu_torch import SynthObs, diagnostics as diag
 assert 'jax' not in sys.modules, 'jax imported'
 assert 'bayhunter_tpu' not in sys.modules, 'the JAX package imported'
 assert 'triton' not in sys.modules, 'triton imported'
+assert 'matplotlib' not in sys.modules, 'matplotlib imported'
 
 for build in (bench_config.build, bench_config.build_rl_prf,
               bench_config.build_prf_srf, bench_config.build_six_sph):
@@ -49,6 +56,20 @@ for qp, qs in ((500.0, 225.0), (2.25 * q, q)):
                        layers[2][:, 0], 0.25, wave_type=rf.SV_WAVE,
                        device='cpu')
     assert y.shape == (2, 64) and bool(torch.isfinite(y).all())
+y = rf.synrf_batch(*layers, 500.0, 225.0, 6.4, 1.0, 64, 5.0, 2.0,
+                   layers[2][:, 0], 0.25, flattening=False, device='cpu')
+assert bool(torch.isfinite(y).all())
+for options in range(4):
+    out = rf.synrf(*(x[0] for x in layers), 500.0, 225.0, 6.4, 1.0, 64,
+                   5.0, 2.0, 2.9, 0.25, options=options, device='cpu')
+    assert all(bool(torch.isfinite(t).all()) for t in out)
+rf_win, J = rf_pd.rf_partials(*(torch.tensor(x[0]) for x in layers[:3]),
+                              500.0, 225.0, 6.4, 1.0, 64, 5.0, 2.0, 2.9,
+                              0.25)
+assert J.shape == (64, 3) and bool(torch.isfinite(J).all())
+x, y = myfwd.MyForwardModel(np.arange(3.0), 'mine').run_model(
+    [3.0, 0.0], [5.0, 6.0], [2.9, 3.5], [2.4, 2.7])
+assert y.shape == (3,) and np.allclose(y, 3.2)
 counts = (prep.model_operands.launches, walk.warm_roots_walk.launches,
           resp.resp.launches, resp.resp_q.launches, swd.secular4.launches,
           swd.secular1.launches, prep.rf_operands.launches)
@@ -70,6 +91,7 @@ with tempfile.TemporaryDirectory() as tmp:
 assert prep.model_operands.launches == 0
 
 assert 'jax' not in sys.modules
+assert 'matplotlib' not in sys.modules
 print('OK')
 '''
 
