@@ -231,15 +231,17 @@ def tomo_data(ncells=TOMO_CELLS, seed=TOMO_DATA_SEED, device=None):
     return TOMO_PERIODS, Y
 
 
-def build_tomo():
-    """The ``parallel.TomoInversion`` of ``tomo_1000x100`` on the card:
-    ``defaults.ini`` priors (layers 1-20, so 21 slots) with
-    ``TOMO_PRIORS`` and ``TOMO_INITPARAMS``, ``TOMO_CHAINS_PER_CELL``
-    chains for each cell of :func:`tomo_data`."""
+def build_tomo(device=None, devices=None):
+    """The ``parallel.TomoInversion`` of ``tomo_1000x100`` on ``device``
+    or split over ``devices`` (``TomoInversion``'s rules): ``defaults.ini``
+    priors (layers 1-20, so 21 slots) with ``TOMO_PRIORS`` and
+    ``TOMO_INITPARAMS``, ``TOMO_CHAINS_PER_CELL`` chains for each cell of
+    :func:`tomo_data` (made on the first card)."""
     from bayhunter_tpu_torch.parallel.tomo import TomoInversion
-    x, Y = tomo_data()
+    x, Y = tomo_data(device=device)
     return TomoInversion(x, Y, ref='rdispph',
                          chains_per_cell=TOMO_CHAINS_PER_CELL,
                          priors=dict(TOMO_PRIORS),
                          initparams=dict(TOMO_INITPARAMS),
-                         random_seed=TOMO_RANDOM_SEED)
+                         random_seed=TOMO_RANDOM_SEED, device=device,
+                         devices=devices)

@@ -74,22 +74,33 @@ def loglike_gauss(ydiff, sigma, corr_inv, logcorr_det):
     return _assemble(n, logc_det, madist)
 
 
-def loglike_gauss_white(ydiff, sigma, whitener, logcorr_det):
+def _whiten(ydiff, whitener, wide):
+    """``ydiff @ whitener``, through ``wide(fn, ydiff)`` when given (the
+    evaluator's: a split run's worker computes the product at the
+    one-device run's width, whose matrix-product kernel sets the
+    rounding of each row)."""
+    if wide is None:
+        return ydiff @ whitener
+    return wide(lambda d: d @ whitener, ydiff)
+
+
+def loglike_gauss_white(ydiff, sigma, whitener, logcorr_det, wide=None):
     """Gaussian correlation law through the whitening factor ``W``
     (n, k), ``C^-1 ~ W W^T``: the quadratic form is a sum of squares,
     so it cannot round negative in float32."""
     n = ydiff.shape[-1]
-    w = ydiff @ whitener
+    w = _whiten(ydiff, whitener, wide)
     madist = torch.sum(w * w, dim=-1) / (sigma * sigma)
     logc_det = (2.0 * n) * torch.log(sigma) + logcorr_det
     return _assemble(n, logc_det, madist)
 
 
-def loglike_gauss_white_dof(ydiff, sigma, whitener, logdet_kept):
+def loglike_gauss_white_dof(ydiff, sigma, whitener, logdet_kept,
+                            wide=None):
     """Degrees-of-freedom-corrected Gaussian law on the k kept
     eigen-directions (normalised by k and the kept log-determinant)."""
     k = whitener.shape[-1]
-    w = ydiff @ whitener
+    w = _whiten(ydiff, whitener, wide)
     madist = torch.sum(w * w, dim=-1) / (sigma * sigma)
     logc_det = (2.0 * k) * torch.log(sigma) + logdet_kept
     return _assemble(k, logc_det, madist)

@@ -690,30 +690,40 @@ def deconvolve(czr, czi, crr, cri, p, vp_top, vs_top, wave_type=P_WAVE):
     return divide(*rotate(czr, czi, crr, cri, p, vp_top, vs_top, wave_type))
 
 
-def inverse_transform(fr, fi, nsamp, fsamp, tshift, gauss_a, dft=None):
+def inverse_transform(fr, fi, nsamp, fsamp, tshift, gauss_a, dft=None,
+                      wide=None):
     """RF time series (C, nsamp) of the deconvolved spectrum's (re, im)
     planes: the folded tables ``dft`` (:func:`dft_tables`) over the
     Gauss-cut lanes, or without them the Gauss/shift factor and
-    ``irfft`` (the lanes beyond the planes' width taken as zero)."""
+    ``irfft`` (the lanes beyond the planes' width taken as zero).
+    ``wide(fn, fr, fi)``, when given, runs the product or the FFT (the
+    evaluator's: a split run's worker runs them at the one-device run's
+    width, whose kernels set the rounding of each row)."""
+    if wide is None:
+        def wide(fn, *xs):
+            return fn(*xs)
     if dft is not None:
-        return fr @ dft[0] + fi @ dft[1]
+        return wide(lambda a, b: a @ dft[0] + b @ dft[1], fr, fi)
     cdt = torch.complex128 if fr.dtype == torch.float64 else torch.complex64
     cq = torch.tensor(gauss_shift_coeffs(fr.shape[-1], nsamp, fsamp, tshift,
                                          gauss_a), dtype=cdt, device=fr.device)
-    return torch.fft.irfft(torch.complex(fr, fi) * cq, nsamp, dim=-1)
+    return wide(lambda a, b: torch.fft.irfft(torch.complex(a, b) * cq, nsamp,
+                                             dim=-1), fr, fi)
 
 
 def receiver_function(response, pack, nl, nsamp, fsamp, tshift, gauss_a,
-                      dft=None, wave_type=P_WAVE, nsv=None):
+                      dft=None, wave_type=P_WAVE, nsv=None, wide=None):
     """RF time series (C, nsamp) from the response planes of
     :func:`transmission_response` and the (rows, C) pack of an NL-slot
     model: rotation with the pack's surface velocities (or a fixed
     near-surface S velocity ``nsv``) and spectral division
-    (:func:`deconvolve`), then :func:`inverse_transform`."""
+    (:func:`deconvolve`), then :func:`inverse_transform` (``wide``
+    passed on)."""
     vp_top, vs_top = surface_velocities(pack, nl, nsv)
     fr, fi = deconvolve(*response, pack[pack_offsets(nl)['p']], vp_top,
                         vs_top, wave_type)
-    return inverse_transform(fr, fi, nsamp, fsamp, tshift, gauss_a, dft)
+    return inverse_transform(fr, fi, nsamp, fsamp, tshift, gauss_a, dft,
+                             wide)
 
 
 def surface_velocities(pack, nl, nsv=None):

@@ -1,9 +1,13 @@
 """Batched inversions of many datasets: ``TomoInversion``
-(``parallel/tomo.py``), imported on first use.  The JAX package's
-multi-device chain sharding (``bayhunter_tpu/parallel/mesh.py``) is not
-ported: the port runs on one device."""
+(``parallel/tomo.py``), imported on first use; and the chain axis split
+over several devices (``parallel/mesh.py``, the counterpart of
+``bayhunter_tpu/parallel/mesh.py``), which ``MCMC_Optimizer`` and
+``TomoInversion`` run through ``devices=``."""
 
 import importlib
+
+from bayhunter_tpu_torch.parallel.mesh import (chain_sharding,  # noqa: F401
+                                               shard_states)
 
 
 def __getattr__(name):

@@ -21,7 +21,12 @@ noise-parameter index), ``normal``, ``uniform`` (birth depth),
 it from any other source.
 
 Model moves run on transposed (NL, C) planes, chains on the minor
-axis, as the kernels take them.  Each chain carries a ``cell``, the row
+axis, as the kernels take them.  A sampler given a row block
+(``Sampler.rows``, a :class:`Rows`) runs rows ``start:stop`` of a
+``total``-chain batch, as a worker of a split run does
+(``parallel/mesh.py``): it draws every random tensor at the full width
+and keeps its rows, so that its generator and its chains' randoms stay
+those of the one-device run.  Each chain carries a ``cell``, the row
 of batched (ncells, ndata) observations it is scored against
 (tomography, ``parallel/tomo.py``), and an inverse temperature ``beta``
 (parallel tempering, ``sampler/tempering.py``, which sets the sampler's
@@ -145,6 +150,13 @@ def make_config(priors, initparams, noiserefs, nl=None):
         iter_main=int(initparams['iter_main']))
 
 
+class Rows(typing.NamedTuple):
+    """Rows ``start:stop`` of a batch of ``total`` chains."""
+    start: int
+    stop: int
+    total: int
+
+
 class Sweep(typing.NamedTuple):
     """A replica-exchange sweep of ``parity`` in a move schedule: not a
     move, since it takes no iteration (``Sampler.advance`` runs it)."""
@@ -196,18 +208,49 @@ class Sampler:
         # logu) runs after every swap_every-th whole cycle
         self.swap_fn = None
         self.swap_every = 0
+        # a worker's row block of a split batch (Rows), None for all
+        self.rows = None
+
+    @property
+    def rows(self):
+        """A worker's row block of a split batch (:class:`Rows`), None
+        for the whole batch; setting it sets the evaluator's too."""
+        return self._rows
+
+    @rows.setter
+    def rows(self, rows):
+        self._rows = rows
+        if self.ev is not None:
+            self.ev.rows = rows
 
     # ------------------------------------------------------------------
     # random draws
     # ------------------------------------------------------------------
 
+    def _draw_width(self, states):
+        """(width of every random tensor, its rows that ``states``
+        hold: None for all of them)."""
+        rows = self.rows
+        if rows is None:
+            return states.n.shape[0], None
+        if states.n.shape[0] != rows.stop - rows.start:
+            raise ValueError('states of %d chains for rows %d:%d'
+                             % (states.n.shape[0], rows.start, rows.stop))
+        return rows.total, slice(rows.start, rows.stop)
+
     def draw(self, gen, states, move):
-        """Per-chain randoms of one step of ``move`` from ``gen``."""
+        """Per-chain randoms of one step of ``move`` from ``gen``, drawn
+        at the full width of the batch (``self.rows``)."""
         C = states.n.shape[0]
         dev = states.n.device
+        width, rows = self._draw_width(states)
+
+        def block(x):
+            return x if rows is None else x[rows]
 
         def uniform():
-            return torch.rand(C, generator=gen, device=dev, dtype=DTYPE)
+            return block(torch.rand(width, generator=gen, device=dev,
+                                    dtype=DTYPE))
 
         def index(m):
             i = torch.floor(uniform() * m.to(DTYPE)).to(torch.int64)
@@ -223,16 +266,18 @@ class Sampler:
                                           device=dev))
         elif move != MOVE_VPVS:
             d['index'] = index(states.n)
-        d['normal'] = torch.randn(C, generator=gen, device=dev,
-                                  dtype=DTYPE)
+        d['normal'] = block(torch.randn(width, generator=gen, device=dev,
+                                        dtype=DTYPE))
         d['logu'] = torch.log(uniform())
         return d
 
     def draw_swap(self, gen, states):
-        """The (C,) log uniforms of one replica-exchange sweep."""
-        C = states.n.shape[0]
-        return torch.log(torch.rand(C, generator=gen, device=states.n.device,
-                                    dtype=DTYPE))
+        """The (C,) log uniforms of one replica-exchange sweep, drawn at
+        the full width of the batch."""
+        width, rows = self._draw_width(states)
+        u = torch.rand(width, generator=gen, device=states.n.device,
+                       dtype=DTYPE)
+        return torch.log(u if rows is None else u[rows])
 
     def advance(self, states, item, gen):
         """``states`` after one item of a move schedule, its randoms
@@ -485,7 +530,9 @@ class Sampler:
         (tomography; 0 by default), ``betas`` its inverse temperature
         (parallel tempering; 1 by default).  Returns ``(states,
         generator)``: the sampler's ``torch.Generator`` is seeded from
-        the same numpy stream."""
+        the same numpy stream.  With ``self.rows`` set, the draws are
+        those of all ``nchains`` (its ``total``) and the states those of
+        its rows alone."""
         cfg = self.cfg
         nl = self.nl
         vsmin, vsmax = cfg.vs_prior
@@ -536,6 +583,16 @@ class Sampler:
             [z_h, np.full((nchains, nl - n_init), 2.0 * zmax)], axis=1)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(rs.randint(2 ** 31)))
+        if self.rows is not None:
+            if self.rows.total != nchains:
+                raise ValueError('rows of a %d-chain batch, %d chains drawn'
+                                 % (self.rows.total, nchains))
+            rows = slice(self.rows.start, self.rows.stop)
+            vs_full, z_full, vpvs_h, noise_h = (
+                x[rows] for x in (vs_full, z_full, vpvs_h, noise_h))
+            cells = None if cells is None else np.asarray(cells)[rows]
+            betas = None if betas is None else np.asarray(betas)[rows]
+            nchains = self.rows.stop - self.rows.start
 
         dev = self.device
 

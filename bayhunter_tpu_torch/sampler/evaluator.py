@@ -165,10 +165,11 @@ class TargetSpec:
                              % self.ref)
         return self.yobs.index_select(0, cell.to(torch.int64))
 
-    def loglike(self, ydiff, sigma, corr=None):
+    def loglike(self, ydiff, sigma, corr=None, wide=None):
         """The target's law on (C, n) residuals; ``sigma`` and ``corr``
         (C,) from the noise state (``corr`` is read by the exponential
-        law only)."""
+        law only); ``wide`` runs the Gaussian law's product
+        (``Evaluator._wide``)."""
         if self.cov == 'exp':
             return lk.loglike_exp(ydiff, sigma, corr)
         if self.cov == 'nocorr':
@@ -179,9 +180,9 @@ class TargetSpec:
                                                self.log_scalederr_sum)
         if self.dof_correction:
             return lk.loglike_gauss_white_dof(ydiff, sigma, self.whitener,
-                                              self.logcorr_det)
+                                              self.logcorr_det, wide)
         return lk.loglike_gauss_white(ydiff, sigma, self.whitener,
-                                      self.logcorr_det)
+                                      self.logcorr_det, wide)
 
     def interpolated(self, cg):
         """Velocities at the solved periods, at the observed ones: the
@@ -210,6 +211,15 @@ class Evaluator:
 
     ``cell`` (C,) int32 selects each chain's row of batched observations
     and may be None when no target has them.
+
+    In a worker of a split run ``rows`` (``chain.Rows``, set with the
+    sampler's) places the chains in the whole batch: the cold chunks
+    follow the one-device run's grid of ``COLD_CHUNK`` rows, and the
+    row-wise operations whose rounding of a row depends on the batch's
+    shape (the Gaussian law's and the RF DFT's matrix products, the cold
+    RF's FFT) run at the width of the one-device run's call, the rows at
+    their place in it (:meth:`_wide`), so that every chain evaluates as
+    it does there.
     """
 
     def __init__(self, joint, priors, initparams, nl, device):
@@ -245,10 +255,33 @@ class Evaluator:
             _opt(initparams.get('lvz', priors.get('lvz'))),
             _opt(initparams.get('hvz', priors.get('hvz'))), self.mantle)
         self.ntargets = len(self.specs)
+        self.rows = None        # a split run's row block (chain.Rows)
+
+    def _wide(self, place=None):
+        """``wide(fn, *xs)``: ``fn(*xs)`` of a row-wise ``fn`` on (C, ...)
+        tensors, run in a worker's block at the one-device run's width,
+        the rows at their offset and zeros elsewhere.  ``place`` is
+        (offset, width) of these rows in the one-device run's call, the
+        whole batch's (``rows``) by default."""
+        if place is None and self.rows is not None:
+            place = (self.rows.start, self.rows.total)
+
+        def wide(fn, *xs):
+            n = xs[0].shape[0]
+            if place is None or place == (0, n):
+                return fn(*xs)
+            off, width = place
+            full = []
+            for x in xs:
+                f = x.new_zeros((width,) + tuple(x.shape[1:]))
+                f[off:off + n] = x
+                full.append(f)
+            return fn(*full)[off:off + n]
+        return wide
 
     # ------------------------------------------------------------------
 
-    def _score(self, ys, tvalids, noise, cell):
+    def _score(self, ys, tvalids, noise, cell, wide):
         """logL, misfits and validity from per-target synthetics."""
         C = noise.shape[0]
         logL = torch.zeros(C, dtype=DTYPE, device=noise.device)
@@ -260,7 +293,7 @@ class Evaluator:
                                 torch.zeros_like(y))
             misfits.append(torch.sqrt(torch.mean(ydiff * ydiff, dim=-1)))
             logL = logL + spec.loglike(ydiff, noise[:, 2 * i + 1],
-                                       noise[:, 2 * i])
+                                       noise[:, 2 * i], wide)
             valid = valid & tvalid
         valid = valid & torch.isfinite(logL)
         total = misfits[0]
@@ -284,26 +317,30 @@ class Evaluator:
                             device=h.device)
         return y, torch.isfinite(y).all(dim=-1)
 
-    def _rf_time_series(self, spec, response, pack, cold):
+    def _rf_time_series(self, spec, response, pack, cold, wide):
         rf = _rf.receiver_function(response, pack, self.nl, spec.nsamp,
                                    spec.fsamp, spec.tshift, spec.gauss_a,
                                    None if cold else spec.dft,
-                                   spec.wave_type, spec.nsv)
+                                   spec.wave_type, spec.nsv, wide)
         y = rf[:, :spec.ndata]
         return y, torch.isfinite(y).all(dim=-1)
 
     # ------------------------------------------------------------------
 
     def eval_cold(self, vs, z, n, vpvs, noise, cell=None):
-        """Cold evaluation of row-major (C, NL) models, in chunks."""
+        """Cold evaluation of row-major (C, NL) models, in chunks of
+        ``COLD_CHUNK`` rows of the whole batch."""
         C = vs.shape[0]
-        parts = [self._eval_cold(vs[i:i + COLD_CHUNK],
-                                 z[i:i + COLD_CHUNK], n[i:i + COLD_CHUNK],
-                                 vpvs[i:i + COLD_CHUNK],
-                                 noise[i:i + COLD_CHUNK],
-                                 None if cell is None
-                                 else cell[i:i + COLD_CHUNK])
-                 for i in range(0, C, COLD_CHUNK)]
+        first, total = (0, C) if self.rows is None \
+            else (self.rows.start, self.rows.total)
+        parts = []
+        for g in range(first - first % COLD_CHUNK, first + C, COLD_CHUNK):
+            a, b = max(g, first) - first, min(g + COLD_CHUNK, first + C) \
+                - first
+            place = (a + first - g, min(g + COLD_CHUNK, total) - g)
+            parts.append(self._eval_cold(
+                vs[a:b], z[a:b], n[a:b], vpvs[a:b], noise[a:b],
+                None if cell is None else cell[a:b], self._wide(place)))
         cache = tuple(tuple(torch.cat([p[3][t][k] for p in parts])
                             for k in range(3))
                       for t in range(self.ntargets))
@@ -311,7 +348,7 @@ class Evaluator:
                 torch.cat([p[1] for p in parts]),
                 torch.cat([p[2] for p in parts]), cache)
 
-    def _eval_cold(self, vs, z, n, vpvs, noise, cell):
+    def _eval_cold(self, vs, z, n, vpvs, noise, cell, wide):
         C = vs.shape[0]
         h, vp, vs_l, rho = _vor.voronoi_to_layers(vs, z, n, vpvs,
                                                   self.mantle)
@@ -339,12 +376,12 @@ class Evaluator:
             response = _resp.resp(coefs, pack, spec.nsamp // 2 + 1,
                                   spec.nsamp, spec.fsamp, spec.wave_type)
             y, tvalid = self._rf_time_series(spec, response, pack,
-                                             cold=True)
+                                             True, wide)
             ys.append(y)
             tvalids.append(tvalid)
             cache.append((y, self._empty(C, vs.device),
                           self._empty(C, vs.device)))
-        logL, misfits, valid = self._score(ys, tvalids, noise, cell)
+        logL, misfits, valid = self._score(ys, tvalids, noise, cell, wide)
         return logL, misfits, valid, tuple(cache)
 
     def eval_noise(self, noise, cache, cell=None):
@@ -352,7 +389,7 @@ class Evaluator:
         synthetics (a noise move leaves the model unchanged)."""
         ys = [c[0] for c in cache]
         tvalids = [torch.isfinite(y).all(dim=-1) for y in ys]
-        logL, _, valid = self._score(ys, tvalids, noise, cell)
+        logL, _, valid = self._score(ys, tvalids, noise, cell, self._wide())
         return logL, valid
 
     def eval_full_batch_t(self, vs_t, z_t, n, vpvs, noise, cache, warm,
@@ -364,6 +401,7 @@ class Evaluator:
         target's forward on K1's layers.  The last result is the
         kernel's prior validity."""
         C = vs_t.shape[1]
+        wide = self._wide()
         mvalid, swd_ops, rf_ops, *layers = _prep.model_operands(
             vs_t, z_t, n, vpvs, self.priors, self.rf_specs, self.swd_specs,
             self.layers)
@@ -392,12 +430,12 @@ class Evaluator:
             response = _resp.resp(coefs, pack, spec.cut, spec.nsamp,
                                   spec.fsamp, spec.wave_type)
             y, tvalid = self._rf_time_series(spec, response, pack,
-                                             cold=False)
+                                             False, wide)
             ys.append(y)
             tvalids.append(tvalid)
             new_cache.append((y, self._empty(C, y.device),
                               self._empty(C, y.device)))
-        logL, misfits, valid = self._score(ys, tvalids, noise, cell)
+        logL, misfits, valid = self._score(ys, tvalids, noise, cell, wide)
         return logL, misfits, valid, tuple(new_cache), mvalid
 
 

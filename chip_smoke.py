@@ -113,7 +113,8 @@ Then (i), the ensemble extensions, each with the counts set to 0 before
 and read after: (i-1) the tutorial under parallel tempering
 (``bench_config.build_tempered``: 2,560 posterior chains x 4 rungs =
 10,240 on the card, tmax 1,000, a sweep after every cycle, the burn-in
-ladder adaptation, 1,024 + 1,024 iterations) through ``MCMC_Optimizer``:
+ladder adaptation, ``TEMPERED_ITERS`` 512 + 512 iterations) through
+``MCMC_Optimizer``:
 the ``.npy`` contract of the 2,560 cold chains alone, the per-gap swap
 rates, the swap proposals against those the schedule places, the
 adapted ladder, the cold rung's logL above the hottest's, a run stopped
@@ -137,6 +138,30 @@ CPU at (f)'s bounds; (j-2) ``SingleChain`` on the tutorial, 512 + 512
 iterations, twice from one seed: the reference layout, equal arrays,
 K4, K6, K3 at its cold init and K1, K2, K3 in its steps.  Neither
 imports matplotlib nor zmq.
+
+Then (k), the chain split (``parallel/mesh.py``) over two workers,
+each a spawned process with its own evaluator: on two GPUs where the
+machine has them, else both on ``cuda:0``.  (k-1) ``tomo_1000x100``
+split (100,000 chains, (i-2)'s seeds and iterations): every field of the
+final states and every array of the summary bit for bit equal to
+(i-2)'s one-card run, its wall time and late proposals/s beside
+(i-2)'s, each worker's peak device memory and launches (K4, K1, K2);
+(k-2) (b)'s configuration at 10,240 chains, the resort off, its segment
+pinned, ``SPLIT_ITERS``: ``mp_inversion`` split writes the ``.npy``
+files (the parent, which holds every snapshot), and every array of every
+file equals the snapshots of the same run on one card without files,
+bit for bit, as do the final states; then the tempered tutorial
+(``build_tempered``'s 2,560 x 4 chains, resort off, sweeps and the
+burn-in ladder adaptation) in memory, split and on one card: equal
+snapshots, final states (swap counters among them) and ladder (K1, K2,
+K3, K4, K6 in the workers); (k-3) a worker's cost of drawing and of
+the batch-shape-dependent products at the one-card width: (k-2)'s
+sampler on half the chains, late cycles timed with the block placed in
+the whole batch and as a batch of its own.  Every earlier phase runs on
+one card (``device=``).  The workers' launch counts join the kernels'
+line under ``split_tomo`` and ``split_optimizer``, the one-card
+references' under ``split_references``; every worker is joined before
+the last two lines.
 
 Last it profiles the late steps of ``tutorial``: host-clock time per
 move, and under ``torch.profiler`` the device's busy and idle share and
@@ -165,10 +190,11 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+CARD = 'cuda:0'       # the device of every one-device run
 C_MAIN = 10240
 NL = 21
 ITERS = 2000          # bench.py's iter_burnin = iter_main
-LATE_CYCLES = 64      # timed late cycles of each main path
+LATE_CYCLES = 32      # timed late cycles of each main path
 PATH_A_CALLS = 5      # synrf_batch calls of path A per wave type
 KERNEL_REPS = 20
 STEP_REPS = 20        # host-clock steps per move in the profile phase
@@ -180,7 +206,7 @@ KERNEL_NAMES = {'K1': '::prep_kernel<', 'K2': 'walk_kernel',
                 'K5': 'secular_kernel<1>', 'K6': 'rf_prep_kernel',
                 'K1_sph': '::prep_sph_kernel<',
                 'K6_unflat': 'rf_prep_kernel<false>'}
-SIX_LATE_CYCLES = 32  # timed late cycles of each six-target path
+SIX_LATE_CYCLES = 16  # timed late cycles of each six-target path
 PUBLIC_CALLS = 3      # surfdisp_batch calls per case of phase (f)
 # (e): K1's dispersion sets — the flat set, the spherical Rayleigh set
 # and the spherical Love density plane
@@ -217,16 +243,29 @@ CUSTOM_ITERS = (256, 256)
 RF_PD_FACTOR = 1e-3
 SNAP_NAMES = ('models', 'likes', 'misfits', 'noise', 'vpvs')
 # (i): the ensemble extensions.  The tempered tutorial (bench_config.
-# build_tempered, 2,560 posterior chains x 4 rungs, its iterations in
-# bench_config.TEMPERED_ITERS): its pinned segment (bit-for-bit resume)
-# and the checkpoint its second run stops at (mid burn-in); the tomography map
+# build_tempered, 2,560 posterior chains x 4 rungs) at a depth of
+# TEMPERED_ITERS, its snapshots thinned to a cycle or more
+# (TEMPERED_MAXMODELS: thin 8, so that the sweeps run), its pinned
+# segment (bit-for-bit resume) and the checkpoint its second run stops
+# at (mid burn-in); the tomography map
 # (bench_config.build_tomo, 1,000 cells x 100 chains, its iterations in
 # bench_config.TOMO_INITPARAMS): its segment, and tests/test_tomo.py's
 # bound at 5 km (:43-44) with the share of cells that must hold it
 # against their own family's truth
-TEMPERED_SEGMENT = 256
+TEMPERED_ITERS = (512, 512)
+TEMPERED_MAXMODELS = 64
+TEMPERED_SEGMENT = 128
 TEMPERED_STOP = 2
 TOMO_SEGMENT = 200
+# (k): the split on the card, two workers (on two GPUs where there are)
+SPLIT_ITERS = (256, 256)      # (k-2): (b)'s configuration, burn-in, main
+SPLIT_MAXMODELS = 32          # thin 8: whole cycles, as in (b)
+SPLIT_SEGMENT = 128           # its pinned segment
+SPLIT_TEMPERED_ITERS = (192, 128)   # the tempered split, in memory
+SPLIT_TEMPERED_MAXMODELS = 16       # thin 12 and 8: sweeps run
+SPLIT_TEMPERED_SEGMENT = 64
+SPLIT_COST_ROUNDS = 8         # (k-3): timed rounds, alternating
+SPLIT_COST_CYCLES = 8         # late cycles a round
 TOMO_DEPTH = 5.0
 TOMO_BOUND = 0.45
 TOMO_CELL_SHARE = 0.9
@@ -1477,60 +1516,58 @@ def check_golden(torch, dev):
         raise AssertionError('the kernels miss the tutorial golden data')
 
 
-def launch_counts():
+def launch_counts(raw=None):
     """The launch counts of every kernel wrapper: K1's spherical kernel
     beside all its launches, K2's split into disjoint arms (Rayleigh
     and Love phase lanes, group lanes of each wave, spherical Love phase
     lanes on the Love density plane), K3's and K3r's SV launches beside
-    all their launches."""
-    from bayhunter_tpu_torch.ops import prep, resp, swd, walk
-    w = walk.warm_roots_walk
-    group_r = w.group_launches - w.group_love_launches
-    return dict(K1=prep.model_operands.launches,
-                K1_sph=prep.model_operands.sph_launches,
-                K2_rayleigh=w.launches - w.love_launches - group_r,
-                K2_love=(w.love_launches - w.group_love_launches
-                         - w.sph_love_launches),
-                K2_group_R=group_r, K2_group_L=w.group_love_launches,
-                K2_sph_L=w.sph_love_launches, K3=resp.resp.launches,
-                K3_sv=resp.resp.sv_launches, K3r=resp.resp_q.launches,
-                K3r_sv=resp.resp_q.sv_launches,
-                K4=swd.secular4.launches, K5=swd.secular1.launches,
-                K6=prep.rf_operands.launches,
-                K6_unflat=prep.rf_operands.unflat_launches,
-                K1_layers=prep.model_operands.layer_launches,
-                **option_counts())
+    all their launches; of this process, or of ``raw`` (the wrappers'
+    counters as ``ops.launch_counts`` gives them, a worker's report)."""
+    from bayhunter_tpu_torch import ops
+    raw = ops.launch_counts() if raw is None else raw
+    m, f = raw['prep.model_operands'], raw['prep.rf_operands']
+    w, r, q = raw['walk.warm_roots_walk'], raw['resp.resp'], raw[
+        'resp.resp_q']
+    group_r = w['group_launches'] - w['group_love_launches']
+    return dict(K1=m['launches'], K1_sph=m['sph_launches'],
+                K2_rayleigh=w['launches'] - w['love_launches'] - group_r,
+                K2_love=(w['love_launches'] - w['group_love_launches']
+                         - w['sph_love_launches']),
+                K2_group_R=group_r, K2_group_L=w['group_love_launches'],
+                K2_sph_L=w['sph_love_launches'], K3=r['launches'],
+                K3_sv=r['sv_launches'], K3r=q['launches'],
+                K3r_sv=q['sv_launches'],
+                K4=raw['swd.secular4']['launches'],
+                K5=raw['swd.secular1']['launches'],
+                K6=f['launches'], K6_unflat=f['unflat_launches'],
+                K1_layers=m['layer_launches'], **option_counts(r, q))
 
 
-def option_counts():
-    """The options arms' launch counts: ``K3_o<k>``/``K3r_o<k>`` of
-    arm k (both waves), and ``K3_optP``/``K3_optSV`` (K3r likewise) the
-    launches of arms 1-3 by wave, which the arm-0 records leave out."""
-    from bayhunter_tpu_torch.ops import resp
+def option_counts(r, q):
+    """The options arms' launch counts of K3's (``r``) and K3r's (``q``)
+    raw counters: ``K3_o<k>``/``K3r_o<k>`` of arm k (both waves), and
+    ``K3_optP``/``K3_optSV`` (K3r likewise) the launches of arms 1-3 by
+    wave, which the arm-0 records leave out."""
     out = {}
-    for name, w in (('K3', resp.resp), ('K3r', resp.resp_q)):
+    for name, w in (('K3', r), ('K3r', q)):
+        arms = w['option_launches']
         for k in OPTIONS:
-            out['%s_o%d' % (name, k)] = sum(w.option_launches[v][k]
-                                            for v in (0, 1))
-        out[name + '_optP'] = sum(w.option_launches[0][1:])
-        out[name + '_optSV'] = sum(w.option_launches[1][1:])
+            out['%s_o%d' % (name, k)] = sum(arms[v][k] for v in (0, 1))
+        out[name + '_optP'] = sum(arms[0][1:])
+        out[name + '_optSV'] = sum(arms[1][1:])
     return out
 
 
+def worker_counts(reports, key='launches'):
+    """The launch counts of a split run's workers, summed: ``key``
+    'launches' at their close, 'launches_at_init' after the cold init."""
+    per = [launch_counts(rep[key]) for rep in reports]
+    return {k: sum(c[k] for c in per) for k in per[0]}
+
+
 def reset_counts():
-    from bayhunter_tpu_torch.ops import prep, resp, swd, walk
-    for w in (prep.model_operands, walk.warm_roots_walk, resp.resp,
-              resp.resp_q, swd.secular4, swd.secular1, prep.rf_operands):
-        w.launches = 0
-    prep.model_operands.sph_launches = 0
-    prep.model_operands.layer_launches = 0
-    prep.rf_operands.unflat_launches = 0
-    for w in (resp.resp, resp.resp_q):
-        w.option_launches = [[0] * 4, [0] * 4]
-    for name in ('love', 'group', 'group_love', 'sph_love'):
-        setattr(walk.warm_roots_walk, name + '_launches', 0)
-    resp.resp.sv_launches = 0
-    resp.resp_q.sv_launches = 0
+    from bayhunter_tpu_torch import ops
+    ops.reset_launch_counts()
 
 
 RATES = {}      # proposals/s of each main path of this run
@@ -1757,14 +1794,20 @@ def counted_init(sampler):
 
 
 def run_optimizer(torch, targets, priors, ip, seed, cls=None,
-                  resume=False):
-    """One ``mp_inversion`` with the launch counts set to 0 before;
-    returns (optimizer, wall seconds, launches at the end of the cold
-    init, launches in all)."""
+                  resume=False, devices=None, files=True):
+    """One ``mp_inversion`` with the launch counts set to 0 before, on
+    the first card or split over ``devices`` (the workers' counts then,
+    and none in this process), writing its files or (``files`` False)
+    keeping its snapshots; returns (optimizer, wall seconds, launches at
+    the end of the cold init, launches in all)."""
     from bayhunter_tpu_torch import MCMC_Optimizer
+    cls = cls or MCMC_Optimizer
+    where = dict(devices=devices) if devices else dict(
+        device=torch.device(CARD))
     reset_counts()
-    opt = (cls or MCMC_Optimizer)(targets, ip, priors, random_seed=seed)
-    at_init = counted_init(opt.sampler)
+    opt = cls(targets, ip, priors, random_seed=seed, **where) if files \
+        else cls.without_files(targets, ip, priors, seed, **where)
+    at_init = None if devices else counted_init(opt.sampler)
     # the seconds of the .npy writing, which count in the run's wall
     # time, and the snapshots written (``opt.saved``, by phase tag)
     save = opt._save_phase
@@ -1782,7 +1825,13 @@ def run_optimizer(torch, targets, priors, ip, seed, cls=None,
     t0 = time.perf_counter()
     opt.mp_inversion(resume=resume)
     torch.cuda.synchronize()
-    return opt, time.perf_counter() - t0, at_init, launch_counts()
+    wall = time.perf_counter() - t0
+    if not devices:
+        return opt, wall, at_init, launch_counts()
+    if any(launch_counts().values()):
+        raise AssertionError('a split run launched kernels in its parent')
+    return (opt, wall, worker_counts(opt.worker_reports, 'launches_at_init'),
+            worker_counts(opt.worker_reports))
 
 
 def optimizer_stats(opt, wall):
@@ -1884,6 +1933,12 @@ def same_states(torch, x, y):
     return (all(torch.equal(getattr(x, f), getattr(y, f)) for f in fields)
             and all(torch.equal(a, b) for ca, cb in zip(x.cache, y.cache)
                     for a, b in zip(ca, cb)))
+
+
+def on_cpu(states):
+    """A copy of ``states`` on the CPU."""
+    from bayhunter_tpu_torch import convert
+    return convert.state_from_numpy(convert.state_to_numpy(states), 'cpu')
 
 
 class Stopped(Exception):
@@ -1997,7 +2052,7 @@ def swap_schedule(torch, opt):
 def optimizer_tempered(torch, tmp):
     """(i-1): the tutorial under parallel tempering
     (``bench_config.build_tempered``: 2,560 posterior chains x 4 rungs =
-    10,240 on the card, ``bench_config.TEMPERED_ITERS``, a sweep after
+    10,240 on the card, ``TEMPERED_ITERS``, a sweep after
     every cycle, the burn-in ladder adaptation) through ``mp_inversion``:
     the ``.npy`` contract of the 2,560 cold chains alone, finite swap rates
     in [0, 1] with swaps accepted, the swap proposals the schedule
@@ -2007,8 +2062,9 @@ def optimizer_tempered(torch, tmp):
     from bayhunter_tpu_torch import bench_config
     from bayhunter_tpu_torch.sampler import tempering
     targets, priors, ip = bench_config.build_tempered()
-    ip.update(segment_iters=TEMPERED_SEGMENT, checkpoint_seconds=0,
-              savepath=os.path.join(tmp, 'i1'))
+    ip.update(iter_burnin=TEMPERED_ITERS[0], iter_main=TEMPERED_ITERS[1],
+              maxmodels=TEMPERED_MAXMODELS, segment_iters=TEMPERED_SEGMENT,
+              checkpoint_seconds=0, savepath=os.path.join(tmp, 'i1'))
     opt, wall, at_init, counts = run_optimizer(torch, targets, priors, ip,
                                                OPT_SEED)
     # exactly c000 ... c2559 of every phase: no c2560_*
@@ -2081,7 +2137,7 @@ def tomo_run(torch, dev):
     from bayhunter_tpu_torch import bench_config
     from bayhunter_tpu_torch.ops import prep, swd
     from bayhunter_tpu_torch.sampler import evaluator
-    tomo = bench_config.build_tomo()
+    tomo = bench_config.build_tomo(device=dev)
     C = tomo.nchains
     reset_counts()
     torch.cuda.synchronize()
@@ -2168,7 +2224,258 @@ def tomo_run(torch, dev):
         bad.append('kernels %s never launched' % missing)
     if bad:
         raise AssertionError('(i-2): ' + '; '.join(bad))
+    # (k-1) holds its split run to these
+    stats['final_states'] = on_cpu(st)
+    stats['summary'] = out
     return stats, rec['at_init'], counts
+
+
+def split_devices(torch):
+    """(k)'s two entries: two GPUs where there are, else the first one
+    twice (two workers on one card)."""
+    n = torch.cuda.device_count()
+    return ['cuda:0', 'cuda:1'] if n >= 2 else ['cuda:0', 'cuda:0']
+
+
+def worker_stats(reports):
+    """Each worker's rows, device, peak device bytes and the launches of
+    its path's kernels."""
+    keep = ('K1', 'K2_rayleigh', 'K3', 'K4', 'K6')
+    return [dict(rows=rep['rows'], device=rep['device'],
+                 peak_device_bytes=rep['peak_bytes'],
+                 launches={k: v for k, v in launch_counts(
+                     rep['launches']).items() if k in keep})
+            for rep in reports]
+
+
+def split_tomo(torch, devs, ref):
+    """(k-1): ``tomo_1000x100`` split over ``devs`` (100,000 chains, the
+    seeds and iterations of (i-2)): every field of the final states and
+    every array of the summary bit for bit equal to (i-2)'s one-device
+    run ``ref``; its wall time and late proposals/s beside (i-2)'s, each
+    worker's peak memory and launches.  Returns (stats, launches at
+    init, launches), the workers' summed."""
+    from bayhunter_tpu_torch import bench_config
+    tomo = bench_config.build_tomo(devices=devs)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = tomo.run(segment_iters=TOMO_SEGMENT, log_every=1)
+    wall = time.perf_counter() - t0
+    (d0, t_0), (d1, t_1) = tomo.progress[-2:]
+    at_init = worker_counts(tomo.worker_reports, 'launches_at_init')
+    counts = worker_counts(tomo.worker_reports)
+    stats = dict(
+        devices=devs, chains=tomo.nchains, iterations=d1, wall_s=wall,
+        wall_s_one_device=ref['wall_s'],
+        late_proposals_per_s=tomo.nchains * (d1 - d0) / (t_1 - t_0),
+        late_proposals_per_s_one_device=ref['late_proposals_per_s'],
+        workers=worker_stats(tomo.worker_reports), pool=tomo.pool_stats,
+        parent_launches=sum(launch_counts().values()), launches=counts)
+    log('split (k-1), tomo_1000x100 over %s: %s' % (devs, json.dumps(stats)))
+    bad = []
+    if not same_states(torch, tomo.final_states, ref['final_states']):
+        bad.append('final states differ from (i-2)')
+    want = ref['summary']
+    if sorted(out) != sorted(want) or not all(
+            out[k].dtype == want[k].dtype and np.array_equal(out[k], want[k])
+            for k in want):
+        bad.append('the summary differs from (i-2)')
+    if stats['parent_launches']:
+        bad.append('the parent launched kernels')
+    missing = [k for k in ('K1', 'K2_rayleigh', 'K4') if counts[k] == 0]
+    if missing:
+        bad.append('kernels %s never launched' % missing)
+    if bad:
+        raise AssertionError('(k-1): ' + '; '.join(bad))
+    return stats, at_init, counts
+
+
+def same_files_as(path, snaps, nchains):
+    """(whether ``path`` holds exactly the ``.npy`` files of ``nchains``
+    chains of the phases of ``snaps`` (``snapshots[tag]`` of a run
+    without files) and each file is, byte for byte, what ``np.save``
+    writes for its snapshot (so every array bit for bit), seconds
+    taken).  A file of a C-ordered array is its header, the same for
+    every chain of a phase and name, and the array's bytes; the files
+    are read by 16 threads."""
+    import concurrent.futures
+    import io
+    t = time.perf_counter()
+    want = {'c%.3d_%s%s.npy' % (c, tag, name)
+            for tag in snaps for c in range(nchains)
+            for name in SNAP_NAMES}
+    if {f for f in os.listdir(path) if f.endswith('.npy')} != want:
+        return False, time.perf_counter() - t
+    keys = dict(models='model', likes='logL', misfits='misfits',
+                noise='noise', vpvs='vpvs')
+
+    def saved(arr):
+        buf = io.BytesIO()
+        np.lib.format.write_array(buf, arr, allow_pickle=False)
+        return buf.getvalue()
+
+    heads = {}
+    for tag in snaps:
+        for name in SNAP_NAMES:
+            arr = np.asarray(snaps[tag][keys[name]][0], np.float32)
+            heads[tag, name] = arr.shape, saved(arr)[:-arr.nbytes or None]
+
+    def chain_equal(job):
+        tag, c = job
+        for name in SNAP_NAMES:
+            arr = np.asarray(snaps[tag][keys[name]][c], np.float32)
+            shape, head = heads[tag, name]
+            want = head + arr.tobytes() if (
+                arr.shape == shape and arr.flags.c_contiguous
+                and arr.nbytes) else saved(arr)
+            with open(os.path.join(path, 'c%.3d_%s%s.npy'
+                                   % (c, tag, name)), 'rb') as f:
+                if f.read() != want:
+                    return False
+        return True
+
+    with concurrent.futures.ThreadPoolExecutor(16) as pool:
+        same = all(pool.map(chain_equal, [(tag, c) for tag in snaps
+                                          for c in range(nchains)]))
+    return same, time.perf_counter() - t
+
+
+def split_optimizer(torch, devs, tmp):
+    """(k-2): (b)'s configuration at 10,240 chains, resort off, its
+    segment pinned, ``SPLIT_ITERS``: ``mp_inversion`` split over
+    ``devs`` writes the files, and every array of every file equals the
+    snapshot of the same run on one card without files, bit for bit, as
+    do the final states; then the tempered tutorial
+    (``build_tempered``'s 2,560 x 4 chains, resort off, sweeps and the
+    ladder adaptation, ``SPLIT_TEMPERED_ITERS``) in memory, split and
+    on one card: equal snapshots, final states (swap counters among
+    them) and ladder.  Returns (stats, launches at init, launches) of
+    the split runs, summed over their workers, and (launches at init,
+    launches) of the one-card runs."""
+    from bayhunter_tpu_torch import bench_config
+    targets, _ = bench_config.tutorial_targets()
+    priors, ip = bench_config.tutorial_params()
+    ip.update(nchains=C_MAIN, iter_burnin=SPLIT_ITERS[0],
+              iter_main=SPLIT_ITERS[1], maxmodels=SPLIT_MAXMODELS,
+              segment_iters=SPLIT_SEGMENT, checkpoint_seconds=0,
+              resort_chains=False, savepath=os.path.join(tmp, 'k'))
+    split, wall, init_s, all_s = run_optimizer(
+        torch, targets, priors, ip, OPT_SEED, devices=devs)
+    one, wall1, init_1, all_1 = run_optimizer(
+        torch, targets, priors, ip, OPT_SEED, files=False)
+    states_equal = same_states(torch, split.final_states,
+                               on_cpu(one.final_states))
+    stats = dict(devices=devs, chains=C_MAIN, iterations=split.iterations,
+                 wall_s=wall, npy_write_s=split.save_seconds,
+                 wall_s_one_device_without_files=wall1,
+                 workers=worker_stats(split.worker_reports),
+                 pool=split.pool_stats, launches=all_s)
+
+    # the files are read back in a thread while the tempered split runs
+    # (its workers hold the card; this process mostly waits on pipes)
+    import concurrent.futures
+    reader = concurrent.futures.ThreadPoolExecutor(1)
+    files = reader.submit(same_files_as, split.savepath, one.snapshots,
+                          C_MAIN)
+    reader.shutdown(wait=False)
+    targets, priors, ipt = bench_config.build_tempered()
+    ipt.update(iter_burnin=SPLIT_TEMPERED_ITERS[0],
+               iter_main=SPLIT_TEMPERED_ITERS[1],
+               maxmodels=SPLIT_TEMPERED_MAXMODELS,
+               segment_iters=SPLIT_TEMPERED_SEGMENT, resort_chains=False)
+    tsplit, twall, tinit_s, tall_s = run_optimizer(
+        torch, targets, priors, ipt, OPT_SEED, devices=devs, files=False)
+    tone, twall1, tinit_1, tall_1 = run_optimizer(
+        torch, targets, priors, ipt, OPT_SEED, files=False)
+    tstate = tsplit.final_states
+    tempered_equal = (
+        same_snapshots(tsplit.snapshots, tone.snapshots)
+        and same_states(torch, tstate, on_cpu(tone.final_states))
+        and np.array_equal(tsplit.tempering_plan.betas,
+                           tone.tempering_plan.betas))
+    stats['tempered'] = dict(
+        device_chains=tsplit.nchains_total, iterations=tsplit.iterations,
+        wall_s=twall, wall_s_one_device=twall1,
+        swaps_proposed=int(tstate.swap_proposed.sum()),
+        swaps_accepted=int(tstate.swap_accepted.sum()),
+        ladder_updates=tsplit._ladder_nupd,
+        workers=worker_stats(tsplit.worker_reports), pool=tsplit.pool_stats,
+        launches=tall_s)
+    files_equal, stats['files_compared_s'] = files.result()
+    log('split (k-2), tutorial optimizer over %s: %s'
+        % (devs, json.dumps(stats)))
+    bad = []
+    if not files_equal:
+        bad.append('the split run\'s files differ from the one-card '
+                   'snapshots')
+    if not states_equal:
+        bad.append('the split run\'s final states differ')
+    if not tempered_equal:
+        bad.append('the tempered split differs from its one-card run')
+    if not (stats['tempered']['swaps_proposed'] > 0
+            and tsplit._ladder_nupd >= 1):
+        bad.append('the tempered split ran no sweep or no adaptation')
+    for name, c in (('split', all_s), ('tempered split', tall_s)):
+        missing = [k for k in ('K1', 'K2_rayleigh', 'K3', 'K4', 'K6')
+                   if c[k] == 0]
+        if missing:
+            bad.append('%s: kernels %s never launched' % (name, missing))
+    if bad:
+        raise AssertionError('(k-2): ' + '; '.join(bad))
+
+    def add(a, b):
+        return {k: a[k] + b[k] for k in a}
+
+    return (stats, add(init_s, tinit_s), add(all_s, tall_s),
+            (add(init_1, tinit_1), add(all_1, tall_1)))
+
+
+def split_step_cost(torch, dev):
+    """(k-3): what a worker pays on the card for drawing every random
+    tensor and running the batch-shape-dependent products (the
+    dof-corrected Gaussian RF law's whitening, the RF DFT) at the
+    one-card width: (k-2)'s sampler on the first half of its 10,240
+    chains, late cycles timed with the block placed in the whole batch
+    (``Sampler.rows``, as a worker runs it) and as a batch of its own,
+    ``SPLIT_COST_ROUNDS`` rounds alternating placed, own, own, placed,
+    ...; ms per iteration of each (median of its rounds)."""
+    from bayhunter_tpu_torch import MCMC_Optimizer, bench_config
+    from bayhunter_tpu_torch.sampler.chain import Rows, dispatch_cycles
+    targets, _ = bench_config.tutorial_targets()
+    priors, ip = bench_config.tutorial_params()
+    ip.update(nchains=C_MAIN, iter_burnin=SPLIT_ITERS[0],
+              iter_main=SPLIT_ITERS[1], resort_chains=False)
+    sampler = MCMC_Optimizer.without_files(targets, ip, priors, OPT_SEED,
+                                           device=dev).sampler
+    placed = Rows(0, C_MAIN // 2, C_MAIN)
+    sampler.rows = placed
+    states, gen = sampler.init_states_host(OPT_SEED, C_MAIN)
+    clen = len(sampler.late_order)
+    count = SPLIT_COST_CYCLES * clen
+    it = 0                       # the main phase: late cycles
+    times = {'placed': [], 'own': []}
+    for r in range(-2, SPLIT_COST_ROUNDS):     # two rounds of warm-up
+        mode = 'placed' if r % 4 in (0, 3) else 'own'
+        sampler.rows = placed if mode == 'placed' else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states = dispatch_cycles(sampler, states, it, count, gen)
+        torch.cuda.synchronize()
+        if r >= 0:
+            times[mode].append(1e3 * (time.perf_counter() - t0) / count)
+        it += count
+    sampler.rows = None
+    stats = dict(block_rows=C_MAIN // 2, width=C_MAIN,
+                 iterations_a_round=count,
+                 ms_per_iter_placed=float(np.median(times['placed'])),
+                 ms_per_iter_own=float(np.median(times['own'])),
+                 rounds=times)
+    stats['extra_ms_per_iter'] = (stats['ms_per_iter_placed']
+                                  - stats['ms_per_iter_own'])
+    log('split (k-3), a worker\'s step cost: ' + json.dumps(stats))
+    if not bool(torch.isfinite(states.logL).all()):
+        raise AssertionError('(k-3): non-finite logL')
+    return stats
 
 
 def optimizer_defaults(torch, tmp):
@@ -2617,7 +2924,7 @@ def main():
         _, init_i, all_i = optimizer_tempered(torch, tmp)
         by_path['tempered_tutorial'] = (init_i, all_i, 1)
         phase('tempered tutorial')
-        _, init_t, all_t = tomo_run(torch, dev)
+        tomo_ref, init_t, all_t = tomo_run(torch, dev)
         by_path['tomo_1000x100'] = (init_t, all_t, 1)
         log('(i) took %.1f s' % (time.perf_counter() - t_i))
         phase('tomography')
@@ -2635,6 +2942,18 @@ def main():
                 raise AssertionError('(j) imported %s' % mod)
         log('(j) took %.1f s' % (time.perf_counter() - t_j))
         phase('single chain')
+        # (k): the split over two workers, on one card or two
+        t_k = time.perf_counter()
+        devs = split_devices(torch)
+        _, init_k, all_k = split_tomo(torch, devs, tomo_ref)
+        by_path['split_tomo'] = (init_k, all_k, 1)
+        del tomo_ref
+        _, init_k, all_k, one_card = split_optimizer(torch, devs, tmp)
+        by_path['split_optimizer'] = (init_k, all_k, 1)
+        by_path['split_references'] = one_card + (1,)
+        split_step_cost(torch, dev)
+        log('(k) took %.1f s' % (time.perf_counter() - t_k))
+        phase('split')
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # each record's launches on the paths: K1 by its number of RF
