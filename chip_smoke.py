@@ -82,9 +82,9 @@ Then it drives the inversion as users run it,
     fixed at 0.98, the degrees-of-freedom-corrected Gaussian RF law) on
     the fixtures with the port's ``SynthObs`` noise, 10,240 chains,
     2,048 + 1,024 iterations, ``maxmodels`` 64: the ``.npy`` contract
-    of every chain and phase, and a second run that checkpoints mid
-    burn-in, stops, and resumes in a new optimizer, bit for bit equal
-    to the first;
+    of every chain and phase; then at 256 chains, 512 + 256 iterations,
+    a run that checkpoints mid burn-in, stops, and resumes in a new
+    optimizer, bit for bit equal to an uninterrupted run;
   * (c) the reference defaults (``defaults.ini``: the exponential RF
     law, an inverted vp/vs) with the mantle prior (4.1, 1.8) and
     positive SWD data errors (the scaled-error law), 10,240 chains,
@@ -163,6 +163,22 @@ line under ``split_tomo`` and ``split_optimizer``, the one-card
 references' under ``split_references``; every worker is joined before
 the last two lines.
 
+Then (l), the JAX package's statistical gates of the sampler
+(``bayhunter_tpu_torch/gates.py``, the JAX tests' recipes and bands)
+with the kernels and the tutorial scripts, each step with the counts
+set to 0 before and read after and its wall seconds: (l-1) the
+dimension-reject pin (grown ensemble, two rounds of birth then death;
+birth <= 10 %, death 12-33 %, combined 5-17 % at 128 chains; measured
+at 10,240) and (l-2) the converged band (the captured snapshot tiled to
+252 chains; 6-22 %) (K1, K2, K3, K4, K6); (l-3) the warm walker (K2)
+against the port's float64 cold solve on the CPU (median < 2e-6, p99 <
+2e-5, outliers <= 1 %); (l-4) the prior-only layer histogram at the
+tutorial's priors, 10,240 chains (K1; every bin within 0.035 of
+uniform); (l-5) ``tutorial/create_testdata_torch.py`` (K4, K5, K6, K3)
+against the golden fixtures; (l-6) ``tutorial/tutorialhunt_torch.py``
+at 21 chains, 512 + 512 iterations, without figures: the ``.npy``
+contract and the final posterior arrays.
+
 Last it profiles the late steps of ``tutorial``: host-clock time per
 move, and under ``torch.profiler`` the device's busy and idle share and
 each kernel's device time, and each configuration's cold init: its wall
@@ -220,8 +236,16 @@ PTXAS_KERNELS = ('prep_kernel', 'walk_kernel', 'resp_kernel',
 # the optimizer runs: (b) and (c) at C_MAIN chains, (d) the tutorial's
 # own size; seeds fixed
 OPT_ITERS_B = (2048, 1024)    # burn-in, main
-OPT_SEGMENT_B = 256           # pinned segment of (b): bit-for-bit resume
-OPT_STOP_B = 3                # (b)'s second run stops at its 3rd checkpoint
+OPT_SEGMENT_B = 256           # pinned segment of (b)'s contract run
+# (b)'s stop-and-resume pair and its uninterrupted reference: chains,
+# burn-in and main iterations, snapshots a phase (thin 16 and 8: whole
+# cycles), the pinned segment; the stopped run stops at its 3rd
+# checkpoint, mid burn-in
+OPT_RESUME_CHAINS = 256
+OPT_RESUME_ITERS = (512, 256)
+OPT_RESUME_MAXMODELS = 32
+OPT_RESUME_SEGMENT = 64
+OPT_STOP_B = 3
 OPT_ITERS_C = (512, 512)
 OPT_SEED = 20261017
 TUTORIAL_SEED = 1
@@ -266,6 +290,17 @@ SPLIT_TEMPERED_MAXMODELS = 16       # thin 12 and 8: sweeps run
 SPLIT_TEMPERED_SEGMENT = 64
 SPLIT_COST_ROUNDS = 8         # (k-3): timed rounds, alternating
 SPLIT_COST_CYCLES = 8         # late cycles a round
+# (l): the dimension-reject pin also measured at 10,240 chains; the
+# prior-only histogram at 10,240 chains over 20 segments (15 dropped):
+# a bin's standard error with each chain's samples taken as one draw,
+# sqrt(0.05 * 0.95 / 10,240) = 0.0022, under a third of the 0.035
+# tolerance; the tutorial script at 21 chains, 512 + 512 iterations
+GATE_WIDE = 10240
+PRIOR_GATE_CHAINS = 10240
+PRIOR_GATE_SEGMENTS = 20
+HUNT_CHAINS = 21
+HUNT_ITERS = (512, 512)
+HUNT_SEED = 20261019
 TOMO_DEPTH = 5.0
 TOMO_BOUND = 0.45
 TOMO_CELL_SHARE = 0.9
@@ -464,27 +499,11 @@ def profile_kernels(torch, dev, kernels):
 
 
 def grown_models(C, nl, seed=3):
-    """Seeded 5-8 layer models around the tutorial truth (the
-    distribution of tests/test_dim_reject_pin.py _grown_states)."""
-    rs = np.random.RandomState(seed)
-    VS = np.zeros((C, nl), np.float32)
-    Z = np.zeros((C, nl), np.float32)
-    N = np.zeros(C, np.int32)
-    for i in range(C):
-        nex = rs.randint(1, 5)
-        n = 4 + nex
-        znuc = np.sort(np.concatenate([
-            np.array([2.5, 15., 32., 48.]) + rs.uniform(-1.5, 1.5, 4),
-            rs.uniform(1., 58., nex)]))
-        vsn = np.interp(znuc, [0, 5, 5.01, 28, 28.01, 36, 36.01, 60],
-                        [2.7, 2.7, 3.6, 3.6, 3.8, 3.8, 4.4, 4.4])
-        vsn = vsn + rs.normal(0, 0.05, n)
-        VS[i, :n] = np.sort(vsn)
-        Z[i, :n] = znuc
-        VS[i, n:] = VS[i, n - 1]
-        Z[i, n:] = 120.0
-        N[i] = n
-    return VS, Z, N
+    """Seeded 5-8 layer models around the tutorial truth,
+    ``gates.grown_models``: the draws of tests/test_dim_reject_pin.py
+    ``_grown_states``, padded as the port's states are."""
+    from bayhunter_tpu_torch import gates
+    return gates.grown_models(C, nl, seed)
 
 
 def secular_ops(top, evaluations, iwave):
@@ -1852,13 +1871,17 @@ def optimizer_stats(opt, wall):
                 fwd_reject_dim_pct=100.0 * ff[2] / max(pp[2], 1.0))
 
 
-def check_contract(opt):
+def check_contract(opt, extra=()):
     """The ``.npy`` contract of a finished run: exactly the files of
-    every chain and phase and the config pickle, each float32 of its
-    shape, models NaN beyond each snapshot's nucleus count, vp/vs
-    inside its prior, finite likes and misfits."""
+    every chain and phase, the config pickle and the files named in
+    ``extra``, each chain's float32 of its shape, models NaN beyond each
+    snapshot's nucleus count, vp/vs inside its prior, finite likes and
+    misfits.  Each file is read once, whole: its header must be the one
+    ``np.save`` writes for a float32 array of its shape (C order), so
+    another dtype or shape fails."""
+    import io
     path, nl, T = opt.savepath, opt.maxlayers, opt.ntargets
-    want = {'%s_config.pkl' % opt.station}
+    want = {'%s_config.pkl' % opt.station} | set(extra)
     plans = {}
     for tag, niter in (('p1', opt.iter_phase1), ('p2', opt.iter_phase2)):
         S = opt._phase_plan(niter)[1]
@@ -1872,18 +1895,31 @@ def check_contract(opt):
             path, len(want - got), len(got - want)))
     shapes = dict(models=(2 * nl,), likes=(), misfits=(T + 1,),
                   noise=(2 * T,), vpvs=())
+    heads = {}        # the header np.save writes, and the array's size
+    for tag, S in plans.items():
+        for k in SNAP_NAMES:
+            zeros = np.zeros((S,) + shapes[k], np.float32)
+            buf = io.BytesIO()
+            np.lib.format.write_array(buf, zeros)
+            heads[tag, k] = (zeros.shape, buf.getvalue()[:-zeros.nbytes],
+                             zeros.nbytes)
     prior = opt.priors['vpvs']
     lo, hi = (prior, prior) if np.isscalar(prior) else prior
     idx = np.arange(nl)
     for c in range(opt.nchains):
-        for tag, S in plans.items():
-            arr = {k: np.load(os.path.join(path, 'c%.3d_%s%s.npy'
-                                           % (c, tag, k)))
-                   for k in SNAP_NAMES}
-            for k, a in arr.items():
-                if a.dtype != np.float32 or a.shape != (S,) + shapes[k]:
-                    raise AssertionError('c%.3d_%s%s: %s %s' % (
-                        c, tag, k, a.dtype, a.shape))
+        for tag in plans:
+            arr = {}
+            for k in SNAP_NAMES:
+                shape, head, size = heads[tag, k]
+                name = 'c%.3d_%s%s.npy' % (c, tag, k)
+                with open(os.path.join(path, name), 'rb') as f:
+                    data = f.read()
+                if not (data.startswith(head)
+                        and len(data) == len(head) + size):
+                    raise AssertionError('%s: not a float32 array of shape '
+                                         '%s' % (name, shape))
+                arr[k] = np.frombuffer(data, np.float32,
+                                       offset=len(head)).reshape(shape)
             vs, z = arr['models'][:, :nl], arr['models'][:, nl:]
             n = np.isfinite(vs).sum(axis=1)
             padded = idx[None, :] >= n[:, None]
@@ -1899,6 +1935,14 @@ def check_contract(opt):
                 raise AssertionError('c%.3d_%s: vp/vs outside its prior or '
                                      'non-finite likes' % (c, tag))
     return plans
+
+
+def final_files(path):
+    """The files ``PlotFromStorage.save_final_distribution`` wrote into
+    the data directory ``path``: the pooled ``c_*.npy`` arrays, and
+    ``outliers.dat`` where it found outlier chains."""
+    return tuple('c_%s.npy' % k for k in SNAP_NAMES) + tuple(
+        f for f in ('outliers.dat',) if os.path.exists(os.path.join(path, f)))
 
 
 def same_outputs(a, b, every=1):
@@ -1985,40 +2029,69 @@ def same_run(torch, a, b):
 
 
 def optimizer_tutorial(torch, tmp):
-    """(b): the tutorial configuration at 10,240 chains through
-    ``mp_inversion``: the contract, then a second run that stops at its
-    ``OPT_STOP_B``-th checkpoint (mid burn-in) and a new optimizer that
-    resumes it, both bit for bit equal to the first run.  Returns the
-    first run's (stats, launches at init, launches)."""
+    """(b): the tutorial configuration through ``mp_inversion``: the
+    contract of a run at 10,240 chains, 2,048 + 1,024 iterations; then,
+    cut to ``OPT_RESUME_CHAINS`` chains and ``OPT_RESUME_ITERS``, an
+    uninterrupted run, a run that stops at its ``OPT_STOP_B``-th
+    checkpoint (mid burn-in) and a new optimizer that resumes it, bit
+    for bit equal to the uninterrupted one (the resume carries the
+    segment, the generator's state and the resort map, none of which
+    depends on the width or the length of the run).  Logs each part's
+    wall seconds.  Returns the first run's (stats, launches at init,
+    launches)."""
     from bayhunter_tpu_torch import bench_config
+    t_b = time.perf_counter()
     targets, _ = bench_config.tutorial_targets()
     priors, ip = bench_config.tutorial_params()
     ip.update(nchains=C_MAIN, iter_burnin=OPT_ITERS_B[0],
               iter_main=OPT_ITERS_B[1], maxmodels=64,
               segment_iters=OPT_SEGMENT_B, checkpoint_seconds=0,
               savepath=os.path.join(tmp, 'b1'))
+    seconds = {}
+    t = time.perf_counter()
     opt, wall, at_init, counts = run_optimizer(torch, targets, priors, ip,
                                                OPT_SEED)
+    seconds['contract_run'] = time.perf_counter() - t
+    t = time.perf_counter()
     plans = check_contract(opt)
+    seconds['contract_check'] = time.perf_counter() - t
     stats = optimizer_stats(opt, wall)
     stats.update(snapshots=plans, main_path_proposals_per_s=RATES.get(
         'tutorial'), launches=counts)
+    del opt
 
-    ip2 = dict(ip, checkpoint_seconds=1e-9, savepath=os.path.join(tmp, 'b2'))
-    where, opt3, wall3 = stopped_and_resumed(torch, targets, priors, ip2,
-                                             OPT_STOP_B, '(b)')
-    if where != (1, OPT_STOP_B * OPT_SEGMENT_B):
+    ip2 = dict(ip, nchains=OPT_RESUME_CHAINS,
+               iter_burnin=OPT_RESUME_ITERS[0],
+               iter_main=OPT_RESUME_ITERS[1],
+               maxmodels=OPT_RESUME_MAXMODELS,
+               segment_iters=OPT_RESUME_SEGMENT,
+               savepath=os.path.join(tmp, 'b2'))
+    t = time.perf_counter()
+    ref, _, _, _ = run_optimizer(torch, targets, priors, ip2, OPT_SEED)
+    seconds['resume_reference'] = time.perf_counter() - t
+    ip3 = dict(ip2, checkpoint_seconds=1e-9,
+               savepath=os.path.join(tmp, 'b3'))
+    t = time.perf_counter()
+    where, resumed, wall3 = stopped_and_resumed(torch, targets, priors, ip3,
+                                                OPT_STOP_B, '(b)')
+    seconds['stopped_and_resumed'] = time.perf_counter() - t
+    if where != (1, OPT_STOP_B * OPT_RESUME_SEGMENT):
         raise AssertionError('(b): checkpoint at %s' % (where,))
-    # the first run's files passed check_contract; the resumed run
-    # handed its writer the same snapshots, bit for bit, of every chain
-    # (np.save writes equal arrays as equal bytes: every 64th chain's
-    # files are compared too)
-    if not same_run(torch, opt, opt3):
+    # the resumed run handed its writer the same snapshots, bit for bit,
+    # of every chain as the uninterrupted run (np.save writes equal
+    # arrays as equal bytes: every 64th chain's files are compared too)
+    t = time.perf_counter()
+    if not same_run(torch, ref, resumed):
         raise AssertionError('(b): the resumed run differs from the '
                              'uninterrupted one')
-    stats['resume'] = dict(stopped_at=where, resumed_wall_s=wall3,
-                           bitwise=True)
+    seconds['resume_compare'] = time.perf_counter() - t
+    stats['resume'] = dict(chains=OPT_RESUME_CHAINS,
+                           iterations=OPT_RESUME_ITERS, stopped_at=where,
+                           resumed_wall_s=wall3, bitwise=True)
+    seconds['b'] = time.perf_counter() - t_b
+    stats['seconds'] = seconds
     log('optimizer (b), tutorial: ' + json.dumps(stats))
+    log('(b) took %.1f s' % seconds['b'])
     return stats, at_init, counts
 
 
@@ -2731,6 +2804,164 @@ def merged_length(intervals):
     return total
 
 
+def counted_cold(ev):
+    """The launch counts of the evaluator ``ev``'s cold evaluations
+    (``eval_cold``, wrapped here), summed over its calls from now on."""
+    cold = dict.fromkeys(launch_counts(), 0)
+    inner = ev.eval_cold
+
+    def counted(*a, **kw):
+        before = launch_counts()
+        out = inner(*a, **kw)
+        for k, v in launch_counts().items():
+            cold[k] += v - before[k]
+        return out
+
+    ev.eval_cold = counted
+    return cold
+
+
+def cold_searches(counts):
+    """Launch counts with K4 and K5 alone: a cold search's launches
+    outside a sampler's cold init (the walker's cold roots, SynthObs)."""
+    return {k: (v if k in ('K4', 'K5') else 0) for k, v in counts.items()}
+
+
+def same_as_fixtures(path):
+    """Max difference, in units of the files' fourth decimal, of each
+    ``st3_*.dat`` in ``path`` from the golden fixture, after checking
+    that every file is there with the fixtures' x and the model file
+    equals the fixture's."""
+    fixtures = os.path.join(ROOT, 'tests', 'fixtures')
+    if sorted(os.listdir(path)) != sorted(
+            ['st3_%s.dat' % r for r in PUBLIC_TOLS] + ['st3_mod.dat']):
+        raise AssertionError('(l-5): files %s' % sorted(os.listdir(path)))
+    units = {}
+    for ref in PUBLIC_TOLS:
+        got, want = (np.loadtxt(os.path.join(d, 'st3_%s.dat' % ref))
+                     for d in (path, fixtures))
+        if got.shape != want.shape or not np.array_equal(got[:, 0],
+                                                         want[:, 0]):
+            raise AssertionError('(l-5): st3_%s.dat x' % ref)
+        units[ref] = int(np.rint(np.abs(got[:, 1] - want[:, 1])
+                                 * 1e4).max())
+    got, want = (np.loadtxt(os.path.join(d, 'st3_mod.dat'), skiprows=1)
+                 for d in (path, fixtures))
+    if not np.array_equal(got, want):
+        raise AssertionError('(l-5): st3_mod.dat differs')
+    return units
+
+
+def gates_and_tutorial(torch, dev, tmp, by_path):
+    """(l): the JAX package's sampler gates (``gates.py``) on the card
+    with the kernels, then the tutorial scripts' counterparts, each step
+    with the launch counts set to 0 before and read after, its wall
+    seconds logged: (l-1) the dimension-reject pin at 128 chains
+    (asserted) and at ``GATE_WIDE`` (measured), (l-2) the converged
+    band, (l-3) the warm walker (K2) against the port's float64 cold
+    solve on the CPU, (l-4) the prior-only layer histogram at the
+    tutorial's priors and ``PRIOR_GATE_CHAINS``, (l-5)
+    ``create_testdata_torch`` against the fixtures, (l-6)
+    ``tutorialhunt_torch.main`` without figures: the ``.npy`` contract
+    and the final posterior arrays.  Adds each step to ``by_path``."""
+    from bayhunter_tpu_torch import bench_config, gates
+    sys.path.insert(0, os.path.join(ROOT, 'tutorial'))
+    import create_testdata_torch
+    import tutorialhunt_torch
+    t_l = time.perf_counter()
+
+    def step(name, required, fn, n_rf=1):
+        reset_counts()
+        t = time.perf_counter()
+        result, cold = fn()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        result['seconds'] = time.perf_counter() - t
+        result['launches'] = {k: v for k, v in counts.items() if v}
+        log('(%s): %s' % (name, json.dumps(result)))
+        missing = [k for k in required if counts[k] == 0]
+        if missing:
+            raise AssertionError('(%s): kernels %s never launched'
+                                 % (name, missing))
+        by_path[name] = ((cold_searches(counts) if cold is None else cold),
+                         counts, n_rf)
+        return result
+
+    def pin():
+        sp = gates.pin_sampler(dev)
+        cold = counted_cold(sp.ev)
+        out = dict(pin=gates.check('pin', gates.dim_reject_pin(sp)),
+                   wide=gates.dim_reject_pin(sp, GATE_WIDE))
+        return out, cold
+
+    def converged():
+        sp = gates.pin_sampler(dev)
+        cold = counted_cold(sp.ev)
+        return gates.check('converged', gates.converged_band(sp)), cold
+
+    def walker():
+        return gates.check('walker', gates.walker_golden(dev)), None
+
+    def prior():
+        priors = bench_config.tutorial_params()[0]
+        sp = gates.prior_sampler(priors, dev, ('swd', 'rf'))
+        cold = counted_cold(sp.ev)
+        out = gates.check('prior', gates.prior_histogram(
+            sp, PRIOR_GATE_CHAINS, segments=PRIOR_GATE_SEGMENTS))
+        if not out['se_ok']:
+            raise AssertionError('(l-4): standard errors %r' % out)
+        return out, cold
+
+    observed = os.path.join(tmp, 'l5')
+
+    def testdata():
+        create_testdata_torch.main(observed, device=dev)
+        units = same_as_fixtures(observed)
+        bad = [r for r, u in units.items()
+               if u > round(PUBLIC_TOLS[r] * 1e4)]
+        if bad:
+            raise AssertionError('(l-5): %s miss the fixtures: %r'
+                                 % (bad, units))
+        return dict(units_of_1e4=units), None
+
+    def hunt():
+        from bayhunter_tpu_torch import MCMC_Optimizer
+
+        class Counted(MCMC_Optimizer):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                Counted.at_init = counted_init(self.sampler)
+
+        tutorialhunt_torch.MCMC_Optimizer = Counted
+        t = time.perf_counter()
+        try:
+            opt, _ = tutorialhunt_torch.main(
+                os.path.join(tmp, 'l6'), nchains=HUNT_CHAINS,
+                iter_burnin=HUNT_ITERS[0], iter_main=HUNT_ITERS[1],
+                random_seed=HUNT_SEED, device=dev, plots=False,
+                observed=observed)
+        finally:
+            tutorialhunt_torch.MCMC_Optimizer = MCMC_Optimizer
+        wall = time.perf_counter() - t      # data, inversion, posterior
+        plans = check_contract(opt, final_files(opt.savepath))
+        models = np.load(os.path.join(opt.savepath, 'c_models.npy'))
+        if not len(models) or models.shape[1:] != (2 * opt.maxlayers,):
+            raise AssertionError('(l-6): c_models.npy %s' % (models.shape,))
+        return dict(snapshots=plans, final_models=len(models),
+                    **optimizer_stats(opt, wall)), Counted.at_init
+
+    warm = ('K1', 'K2_rayleigh', 'K3', 'K4', 'K6')
+    out = dict(pin=step('l-1', warm, pin),
+               converged=step('l-2', warm, converged),
+               walker=step('l-3', ('K2_rayleigh', 'K4'), walker),
+               prior=step('l-4', ('K1',), prior),
+               testdata=step('l-5', ('K3', 'K3_sv', 'K4', 'K5', 'K6'),
+                             testdata, n_rf=0),
+               tutorialhunt=step('l-6', warm, hunt))
+    log('(l) took %.1f s' % (time.perf_counter() - t_l))
+    return out
+
+
 def profile_steps(torch, sampler, states, gen, config='tutorial'):
     """Where the late steps' time goes in configuration ``config``:
     host-clock ms per step of each move (draws included,
@@ -2954,6 +3185,9 @@ def main():
         split_step_cost(torch, dev)
         log('(k) took %.1f s' % (time.perf_counter() - t_k))
         phase('split')
+        # (l): the sampler gates and the tutorial scripts
+        gates_and_tutorial(torch, dev, tmp, by_path)
+        phase('gates and tutorial')
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # each record's launches on the paths: K1 by its number of RF

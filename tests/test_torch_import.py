@@ -10,7 +10,8 @@ options among them), the six-target spherical configuration, a tempered
 sweep and ``SynthObs``'s dispersion data run on the CPU, and an
 inversion through ``MCMC_Optimizer`` on the CPU and
 ``PlotFromStorage.save_final_distribution`` on its files import nothing
-of JAX, matplotlib or zmq either."""
+of JAX, matplotlib or zmq either; nor do the sampler gates (``gates``)
+and the tutorial scripts' counterparts (``tutorial/*_torch.py``)."""
 
 import torch_threads  # noqa: F401  (one PyTorch thread a process)
 
@@ -40,6 +41,9 @@ from bayhunter_tpu_torch.parallel import TomoInversion, tomo
 from bayhunter_tpu_torch import baywatch, models, plotting
 from bayhunter_tpu_torch.templates import mytarget
 from bayhunter_tpu_torch.sampler import chain
+from bayhunter_tpu_torch import gates
+sys.path.insert(0, 'tutorial')
+import create_testdata_torch, estimate_rRF_torch, tutorialhunt_torch
 for name, (mod, cls) in {
         'Model': (models, 'Model'), 'ModelMatrix': (models, 'ModelMatrix'),
         'SingleChain': (chain, 'SingleChain'),

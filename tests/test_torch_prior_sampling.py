@@ -12,76 +12,25 @@ the Bodin et al. (2012) acceptance terms, and K1's prior validity
 
 import torch_threads  # noqa: F401  (one PyTorch thread a process)
 
-import numpy as np
-import torch
+from bayhunter_tpu_torch import gates
 
-from bayhunter_tpu_torch.ops import prep
-from bayhunter_tpu_torch.sampler import chain as tchain
-
-# tests/test_sampler.py's PRIORS and INITPARAMS, with its prior-only
-# widths (wide birth/death proposals, width adaptation disabled)
+# tests/test_sampler.py's PRIORS, with its prior-only widths
+# (gates.PRIOR_INITPARAMS: wide birth/death proposals, width adaptation
+# disabled)
 PRIORS = {'vs': (2.0, 5.0), 'z': (0.0, 60.0), 'layers': (1, 10),
           'vpvs': 1.73, 'mohoest': None, 'mantle': None,
           'swdnoise_corr': 0.0, 'swdnoise_sigma': (1e-5, 0.05),
           'rfnoise_corr': 0.92, 'rfnoise_sigma': (1e-5, 0.05)}
-INITPARAMS = {'propdist': (0.05, 0.05, 1.0, 0.005, 0.005),
-              'acceptance': (0.0, 100.0), 'thickmin': 0.1,
-              'lvz': None, 'hvz': None, 'rcond': 1e-5,
-              'iter_burnin': 1000, 'iter_main': 1000}
 NL = 11
 
 
-class FlatEval:
-    """A constant likelihood on the evaluator's interface; the prior
-    validity is K1's (``prep.model_operands``, no RF target)."""
-
-    def __init__(self, priors):
-        self.priors = priors
-
-    @staticmethod
-    def _flat(C, device):
-        return (torch.zeros(C, dtype=tchain.DTYPE, device=device),
-                torch.zeros((C, 2), dtype=tchain.DTYPE, device=device),
-                torch.ones(C, dtype=torch.bool, device=device))
-
-    def eval_cold(self, vs, z, n, vpvs, noise, cell=None):
-        logL, misfits, ok = self._flat(vs.shape[0], vs.device)
-        return logL, misfits, ok, ((misfits[:, :1],),)
-
-    def eval_full_batch_t(self, vs_t, z_t, n, vpvs, noise, cache, warm,
-                          cell=None):
-        mvalid, _, _ = prep.model_operands(vs_t, z_t, n, vpvs, self.priors,
-                                           ())
-        logL, misfits, ok = self._flat(n.shape[0], n.device)
-        return logL, misfits, ok, cache, mvalid
-
-    def eval_noise(self, noise, cache, cell=None):
-        logL, _, ok = self._flat(noise.shape[0], noise.device)
-        return logL, ok
-
-
 def test_prior_only_dispatch_cycles_uniform_layer_histogram():
-    cfg = tchain.make_config(PRIORS, INITPARAMS, ['swd'], nl=NL)
-    priors = prep.ModelPriors(*PRIORS['layers'], *PRIORS['vs'],
-                              *PRIORS['z'], INITPARAMS['thickmin'],
-                              None, None)
-    sp = tchain.Sampler(FlatEval(priors), cfg, 'cpu')
-    nmin = PRIORS['layers'][0] + 1     # nuclei counts incl. halfspace
-    nmax = PRIORS['layers'][1] + 1
-    states, gen = sp.init_states_host(7, 128)
-    it = 0                             # past early_cutoff: late cycles
-    samples = []
-    for s in range(40):
-        states = tchain.dispatch_cycles(sp, states, it, 100, gen)
-        it += 100
-        if s >= 15:
-            samples.append(states.n.numpy())
-    ns = np.concatenate(samples)
-    assert ns.min() >= nmin and ns.max() <= nmax
-    h = np.bincount(ns, minlength=nmax + 1)[nmin:nmax + 1] / ns.size
-    assert np.all(np.abs(h - 1.0 / (nmax - nmin + 1)) < 0.035), h
-    # every accepted model stays inside the vs prior box
-    vs = states.vs.numpy()
-    active = np.arange(NL)[None, :] < states.n.numpy()[:, None]
-    assert vs[active].min() >= PRIORS['vs'][0]
-    assert vs[active].max() <= PRIORS['vs'][1]
+    sp = gates.prior_sampler(PRIORS, 'cpu', ('swd',), nl=NL)
+    r = gates.prior_histogram(sp, 128, seed=7, segments=40, drop=15)
+    print(r)
+    # every bin within 0.035 of uniform, every accepted model inside
+    # the vs prior box (nucleus counts outside the prior raise)
+    assert r['max_dev'] < 0.035, r['hist']
+    assert PRIORS['vs'][0] <= r['vs_range'][0]
+    assert r['vs_range'][1] <= PRIORS['vs'][1]
+    assert r['ok']
