@@ -209,6 +209,51 @@ def test_jax_phase_records_each_segment_end_state_thin_times(monkeypatch):
     assert [-100 + 10 * k for k in range(1, 11)] == list(range(-90, 1, 10))
 
 
+def test_jax_phase_one_iteration_segments_record_each_state_once(
+        monkeypatch):
+    # the premise of tools/jax_tutorial_runs.py's pin: the JAX _run_phase
+    # with segment_iters 1 and thin 1 (below a cycle, so per-step
+    # dispatch) records the state after every iteration exactly once,
+    # and asks the move schedule for each global iteration once, in order
+    C, nl = 3, 4
+
+    def state(it):
+        def f(v, shape=(C,)):
+            return np.full(shape, v, np.float32)
+        return types.SimpleNamespace(
+            vs=f(3.0, (C, nl)), z=f(1.0, (C, nl)), n=np.full(C, 2, np.int32),
+            logL=f(it), misfits=np.zeros((C, 2), np.float32),
+            noise=np.zeros((C, 2), np.float32), vpvs=f(1.7),
+            iiter=np.full(C, it, np.int32),
+            accepted=np.zeros((C, 5), np.int32),
+            proposed=np.ones((C, 5), np.int32),
+            fwdfail=np.zeros((C, 5), np.int32))
+
+    asked = []
+
+    def moves_for(it, count):
+        asked.extend(range(it, it + count))
+        return np.zeros(count, np.int32)
+
+    def dispatch_cycles(*args):
+        raise AssertionError('thin 1 is below a cycle: no fused cycles')
+
+    monkeypatch.setattr(jopt, 'dispatch_cycles', dispatch_cycles)
+    ns = types.SimpleNamespace(
+        initparams={'maxmodels': 50, 'segment_iters': 1,
+                    'checkpoint_seconds': 0},
+        sampler=types.SimpleNamespace(
+            step_fn=lambda st, move: state(int(st.iiter[0]) + 1),
+            moves_for=moves_for, cycle_fn=object(), cycle_len=5),
+        tempering_plan=None, _resort=False, _perm=None, nchains=C,
+        maxlayers=nl, _precompiled=True)
+    ns._phase_plan = types.MethodType(JAX._phase_plan, ns)
+    ns._snapshot_host = types.MethodType(JAX._snapshot_host, ns)
+    _, snaps = JAX._run_phase(ns, state(-100), 12, 'burn-in', t0=0.0)
+    assert snaps['logL'][0].tolist() == [float(it) for it in range(-99, -87)]
+    assert asked == list(range(-100, -88))
+
+
 def test_resume_is_bitwise(tmp_path):
     base, targets, priors, ip = _swd_optimizer(
         tmp_path / 'one', segment_iters=5, checkpoint_seconds=0)

@@ -2,21 +2,27 @@
 the runs that set ``chip_smoke.py``'s recovery bands (``RECOVERY``).
 
     python3 tools/tutorial_recovery.py --seeds 1 2 3 [--chains 21]
-        [--jobs 1] [--out results/tutorial_recovery.json]
+        [--jobs 1] [--schedule 4096 2048] [--no-dof-correction]
+        [--out results/tutorial_recovery.json]
 
-Each seed runs ``chip_smoke.tutorial_run``: the tutorial's
+Each seed runs as ``chip_smoke.tutorial_run`` does: the tutorial's
 configuration and data (``tutorial/config.ini`` with
 ``tutorial/tutorialhunt.py``'s updates; the fixtures plus the port's
 ``SynthObs`` noise) through ``MCMC_Optimizer.mp_inversion`` on the
-card, 32,768 + 16,384 iterations, ``maxmodels`` 50,000, its segment
-pinned at ``chip_smoke.TUTORIAL_SEGMENT``, and prints its rate,
-acceptance, forward rejects and the posterior summary of its main
-phase (layer-count histogram and mode, P(5) + P(6), the medians of
-sigma_RF, sigma_SWD and vp/vs) as one JSON line, after the card's name
-and power limit.  ``--jobs N`` runs the seeds in N processes at once on
-the one card (a seed gives the same sample path either way; the rates
-of such runs are shared ones).  A seed may be given twice.  Needs a
-CUDA device.
+card, 32,768 + 16,384 iterations unless ``--schedule BURNIN MAIN``
+says otherwise, ``maxmodels`` 50,000, its segment pinned at
+``chip_smoke.TUTORIAL_SEGMENT``, ``gauss_dof_correction`` on unless
+``--no-dof-correction``, and prints its rate, acceptance, forward
+rejects, the posterior summary of its main phase (layer-count
+histogram and mode, P(5) + P(6), the medians of sigma_RF, sigma_SWD and
+vp/vs), under ``per_chain`` the per-chain statistics of
+``tools/posterior_compare.chain_stats`` and under ``moves`` the final
+states' per-move counters and proposal widths, as one JSON line, after
+the card's name and power limit; ``tools/posterior_compare.py`` holds
+such runs against the JAX package's (``tools/jax_tutorial_runs.py``).
+``--jobs N`` runs the seeds in N processes at once on the one card (a
+seed gives the same sample path either way; the rates of such runs are
+shared ones).  A seed may be given twice.  Needs a CUDA device.
 """
 
 import argparse
@@ -31,15 +37,45 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
 
 import chip_smoke as cs  # noqa: E402
+from posterior_compare import chain_stats, move_stats  # noqa: E402
 
 
-def run_seeds(torch, seeds, chains, smi):
+def tutorial_seed(torch, tmp, seed, chains, schedule=None, dof=True):
+    """``chip_smoke.tutorial_run`` of ``seed``, its burn-in and main
+    phase those of ``schedule`` (the tutorial's when None) and
+    ``gauss_dof_correction`` as ``dof`` says; returns (its stats with
+    the schedule, the per-chain statistics of its files and its final
+    states' per-move counters and widths, launches)."""
+    from bayhunter_tpu_torch import bench_config
+    targets, sd = bench_config.tutorial_targets()
+    priors, ip = bench_config.tutorial_params()
+    ip.update(nchains=chains, segment_iters=cs.TUTORIAL_SEGMENT,
+              savepath=os.path.join(tmp, 'd%d' % seed),
+              gauss_dof_correction=dof)
+    if schedule is not None:
+        ip.update(iter_burnin=schedule[0], iter_main=schedule[1])
+    opt, wall, _, counts = cs.run_optimizer(torch, targets, priors, ip, seed)
+    stats = cs.optimizer_stats(opt, wall)
+    st = opt.final_states
+    stats.update(seed=seed, sigma_swd_injected=sd,
+                 snapshots=cs.check_contract(opt), **cs.recovery_summary(opt))
+    stats.update(schedule=[opt.iter_phase1, opt.iter_phase2],
+                 per_chain=chain_stats(opt.savepath, opt.nchains,
+                                       opt.maxlayers),
+                 moves=move_stats(*(x[:opt.nchains].cpu().numpy() for x in (
+                     st.accepted, st.proposed, st.fwdfail, st.propdist))))
+    return stats, counts
+
+
+def run_seeds(torch, seeds, chains, smi, schedule=None, dof=True):
     """The runs of ``seeds`` in this process, one JSON line each."""
     runs = []
     tmp = tempfile.mkdtemp(prefix='bh_recovery_')
     try:
         for seed in seeds:
-            stats, _, counts = cs.tutorial_run(torch, tmp, seed, chains)
+            stats, counts = tutorial_seed(torch, tmp, seed, chains,
+                                          schedule, dof)
+            stats['gauss_dof_correction'] = dof
             stats['launches'] = counts
             stats['device'] = smi
             stats['jobs'] = 1
@@ -51,7 +87,7 @@ def run_seeds(torch, seeds, chains, smi):
     return runs
 
 
-def run_parallel(seeds, chains, jobs):
+def run_parallel(seeds, chains, jobs, schedule=None, dof=True):
     """The runs of ``seeds`` in child processes of this script, at most
     ``jobs`` at once; their JSON lines in the order of ``seeds``."""
     from bayhunter_tpu_torch.ops import _ext
@@ -63,6 +99,10 @@ def run_parallel(seeds, chains, jobs):
             i, seed = pending.pop(0)
             cmd = [sys.executable, os.path.abspath(__file__),
                    '--seeds', str(seed), '--chains', str(chains)]
+            if schedule is not None:
+                cmd += ['--schedule', str(schedule[0]), str(schedule[1])]
+            if not dof:
+                cmd.append('--no-dof-correction')
             running.append((i, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                 text=True)))
         i, proc = running.pop(0)
@@ -81,6 +121,11 @@ def main():
     ap.add_argument('--seeds', type=int, nargs='+', default=[1, 2])
     ap.add_argument('--chains', type=int, default=21)
     ap.add_argument('--jobs', type=int, default=1)
+    ap.add_argument('--schedule', type=int, nargs=2, default=None,
+                    metavar=('BURNIN', 'MAIN'))
+    ap.add_argument('--no-dof-correction', action='store_true',
+                    help='gauss_dof_correction off (a shifted sigma_RF '
+                    'posterior: the comparison\'s positive control)')
     ap.add_argument('--out', default=None)
     args = ap.parse_args()
     import torch
@@ -90,10 +135,13 @@ def main():
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
+    dof = not args.no_dof_correction
     if args.jobs > 1:
-        runs = run_parallel(args.seeds, args.chains, args.jobs)
+        runs = run_parallel(args.seeds, args.chains, args.jobs,
+                            args.schedule, dof)
     else:
-        runs = run_seeds(torch, args.seeds, args.chains, smi)
+        runs = run_seeds(torch, args.seeds, args.chains, smi, args.schedule,
+                         dof)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, 'w') as f:
