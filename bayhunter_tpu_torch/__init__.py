@@ -10,9 +10,13 @@ Device and dtype policy:
 
   * every function takes its device from the tensors it is given, or
     from an explicit ``device`` argument — nothing is moved implicitly;
-  * the sampler state and every solver operand are float32
-    (``DTYPE``); CPU callers may pass float64 to the plain functions
-    for golden checks;
+  * the sampler state and every solver operand are float32 (``DTYPE``,
+    the default) or, for a run given ``dtype=torch.float64``, float64:
+    float32 runs take the batch path (K1, K2, K3 at the Gauss-cut
+    lanes), float64 runs the per-chain ring path (K4/K5, K6, K3 at all
+    lanes, their double instances), as the JAX package picks its paths;
+    CPU callers may pass float64 to the plain functions for golden
+    checks;
   * each CUDA kernel has a plain PyTorch twin in the same module; a
     kernel wrapper runs the twin only for tensors on the CPU and
     launches the kernel (or raises) for CUDA tensors.
@@ -37,7 +41,7 @@ import importlib
 
 import torch
 
-DTYPE = torch.float32
+DTYPE = torch.float32       # the default floating type of a run
 
 # name -> (module, attribute); attribute None: the module itself
 _PARITY_EXPORTS = {

@@ -36,6 +36,7 @@ targets share the ``swdnoise_*`` priors and the RF targets the
 import os
 
 import numpy as np
+import torch
 
 from bayhunter_tpu_torch import Targets
 from bayhunter_tpu_torch.sampler.chain import Sampler, make_config
@@ -87,13 +88,17 @@ def joint_target(refs=CONFIGS['tutorial'], fixtures=FIXTURES, flsph=0):
     return Targets.JointTarget(targets=targets)
 
 
-def build_config(name, device, iters=2000, nl=21):
-    """(sampler, evaluator) of the configuration ``name`` of CONFIGS."""
+def build_config(name, device, iters=2000, nl=21, dtype=torch.float32,
+                 use_batch_swd=True):
+    """(sampler, evaluator) of the configuration ``name`` of CONFIGS, its
+    chains at ``dtype``, on the batch path or (``use_batch_swd`` False,
+    which float64 needs) the per-chain ring path."""
     ip = initparams(iters)
     joint = joint_target(CONFIGS[name], flsph=int(name in SPHERICAL))
     cfg = make_config(PRIORS, ip, [t.noiseref for t in joint.targets],
-                      nl=nl)
-    ev = build_evaluator(joint, PRIORS, ip, nl, device)
+                      nl=nl, dtype=dtype)
+    ev = build_evaluator(joint, PRIORS, ip, nl, device, dtype,
+                         use_batch_swd)
     return Sampler(ev, cfg, device), ev
 
 

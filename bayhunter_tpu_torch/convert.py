@@ -9,7 +9,9 @@ counters — as numpy arrays into a
 back.  The JAX PRNG ``key`` is not carried: the port draws its randoms
 from its own ``torch.Generator``.  A per-chain field given as a scalar
 (the JAX ``ChainState`` defaults of ``cell`` and the swap counters) is
-broadcast over the chains.
+broadcast over the chains.  The float fields and the cache travel at
+float32 or float64 (a float64 JAX state into a float64 port state,
+whose run takes the per-chain ring path).
 """
 
 import numpy as np
@@ -23,16 +25,19 @@ INT_FIELDS = ('n', 'accepted', 'proposed', 'fwdfail', 'iiter', 'cell',
               'swap_accepted', 'swap_proposed')
 
 
-def state_from_numpy(fields, device):
+def state_from_numpy(fields, device, dtype=torch.float32):
     """``fields``: a mapping (or object with attributes) holding the
     arrays named in FLOAT_FIELDS, INT_FIELDS and ``cache`` (a tuple per
-    target of (y, roots, slopes))."""
+    target of (y, roots, slopes)); the float fields and the cache become
+    ``dtype`` tensors (float32 or float64)."""
     def get(name):
         return fields[name] if isinstance(fields, dict) \
             else getattr(fields, name)
 
-    def f32(x):
-        return torch.tensor(np.asarray(x, np.float32), device=device)
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+
+    def real(x):
+        return torch.tensor(np.asarray(x, np_dtype), device=device)
 
     def i32(x):
         return torch.tensor(np.asarray(x, np.int32), device=device)
@@ -43,9 +48,9 @@ def state_from_numpy(fields, device):
         x = np.asarray(x)
         return np.broadcast_to(x, nchains) if x.ndim == 0 else x
 
-    kw = {k: f32(per_chain(get(k))) for k in FLOAT_FIELDS}
+    kw = {k: real(per_chain(get(k))) for k in FLOAT_FIELDS}
     kw.update({k: i32(per_chain(get(k))) for k in INT_FIELDS})
-    kw['cache'] = tuple(tuple(f32(a) for a in entry)
+    kw['cache'] = tuple(tuple(real(a) for a in entry)
                         for entry in get('cache'))
     return ChainState(**kw)
 

@@ -1,77 +1,105 @@
-// Complex (re, im) float pairs and 2x2 complex matrices, formula for
-// formula as the (re, im) helpers of bayhunter_tpu/ops/pallas_rf.py
-// (:73-148) and their plain twins in bayhunter_tpu_torch/ops/rf.py.
+// Complex (re, im) pairs and 2x2 complex matrices, formula for formula
+// as the (re, im) helpers of bayhunter_tpu/ops/pallas_rf.py (:73-148)
+// and their plain twins in bayhunter_tpu_torch/ops/rf.py; templates on
+// the scalar type T (float for K1, float and double for K3 and K6), their
+// literals T(...) (each float literal equals the float it replaced).
 // No library complex type is used: the square-root branch cuts below
 // decide the sign of the receiver function and must match the twins.
 #pragma once
 
-struct cf {
-    float re, im;
+#include "real.cuh"
+
+template <class T>
+struct cplx {
+    T re, im;
 };
 
 // 2x2 complex matrix (m11, m12, m21, m22)
-struct m4 {
-    cf a11, a12, a21, a22;
+template <class T>
+struct mat4 {
+    cplx<T> a11, a12, a21, a22;
 };
 
-static __device__ __forceinline__ cf cmk(float re, float im) {
-    cf r;
+using cf = cplx<float>;
+using m4 = mat4<float>;
+
+template <class T>
+static __device__ __forceinline__ cplx<T> cmk(T re, T im) {
+    cplx<T> r;
     r.re = re;
     r.im = im;
     return r;
 }
 
-static __device__ __forceinline__ cf creal(float x) { return cmk(x, 0.0f); }
+template <class T>
+static __device__ __forceinline__ cplx<T> creal(T x) { return cmk(x, T(0)); }
 
-static __device__ __forceinline__ cf cmul(cf a, cf b) {
+template <class T>
+static __device__ __forceinline__ cplx<T> cmul(cplx<T> a, cplx<T> b) {
     return cmk(a.re * b.re - a.im * b.im, a.re * b.im + a.im * b.re);
 }
 
-static __device__ __forceinline__ cf cadd(cf a, cf b) {
+template <class T>
+static __device__ __forceinline__ cplx<T> cadd(cplx<T> a, cplx<T> b) {
     return cmk(a.re + b.re, a.im + b.im);
 }
 
-static __device__ __forceinline__ cf csub(cf a, cf b) {
+template <class T>
+static __device__ __forceinline__ cplx<T> csub(cplx<T> a, cplx<T> b) {
     return cmk(a.re - b.re, a.im - b.im);
 }
 
-static __device__ __forceinline__ cf cscale(float s, cf a) {
+template <class T>
+static __device__ __forceinline__ cplx<T> cscale(T s, cplx<T> a) {
     return cmk(s * a.re, s * a.im);
 }
 
-static __device__ __forceinline__ cf cneg(cf a) { return cmk(-a.re, -a.im); }
+template <class T>
+static __device__ __forceinline__ cplx<T> cneg(cplx<T> a) {
+    return cmk(-a.re, -a.im);
+}
 
-static __device__ __forceinline__ cf cinv(cf a) {
-    float d = a.re * a.re + a.im * a.im;
+template <class T>
+static __device__ __forceinline__ cplx<T> cinv(cplx<T> a) {
+    T d = a.re * a.re + a.im * a.im;
     return cmk(a.re / d, -a.im / d);
 }
 
-static __device__ __forceinline__ cf cdiv(cf a, cf b) { return cmul(a, cinv(b)); }
-
-// principal square root
-static __device__ __forceinline__ cf csqrt_pair(cf a) {
-    float r = sqrtf(a.re * a.re + a.im * a.im);
-    float re = sqrtf(fmaxf(0.5f * (r + a.re), 0.0f));
-    float im_mag = sqrtf(fmaxf(0.5f * (r - a.re), 0.0f));
-    return cmk(re, a.im < 0.0f ? -im_mag : im_mag);
+template <class T>
+static __device__ __forceinline__ cplx<T> cdiv(cplx<T> a, cplx<T> b) {
+    return cmul(a, cinv(b));
 }
 
-static __device__ __forceinline__ cf cexp_pair(cf a) {
-    float m = expf(a.re);
-    return cmk(m * cosf(a.im), m * sinf(a.im));
+// principal square root
+template <class T>
+static __device__ __forceinline__ cplx<T> csqrt_pair(cplx<T> a) {
+    T r = msqrt(a.re * a.re + a.im * a.im);
+    T re = msqrt(mmax(T(0.5) * (r + a.re), T(0)));
+    T im_mag = msqrt(mmax(T(0.5) * (r - a.re), T(0)));
+    return cmk(re, a.im < T(0) ? -im_mag : im_mag);
+}
+
+template <class T>
+static __device__ __forceinline__ cplx<T> cexp_pair(cplx<T> a) {
+    T m = mexp(a.re);
+    return cmk(m * mcos(a.im), m * msin(a.im));
 }
 
 // conj(sqrt(complex(x))) for real x (interface coefficients)
-static __device__ __forceinline__ cf csqrt_conj_real(float x) {
-    return cmk(sqrtf(fmaxf(x, 0.0f)), -sqrtf(fmaxf(-x, 0.0f)));
+template <class T>
+static __device__ __forceinline__ cplx<T> csqrt_conj_real(T x) {
+    return cmk(msqrt(mmax(x, T(0))), -msqrt(mmax(-x, T(0))));
 }
 
-static __device__ __forceinline__ cf csqrt_plain_real(float x) {
-    return cmk(sqrtf(fmaxf(x, 0.0f)), sqrtf(fmaxf(-x, 0.0f)));
+template <class T>
+static __device__ __forceinline__ cplx<T> csqrt_plain_real(T x) {
+    return cmk(msqrt(mmax(x, T(0))), msqrt(mmax(-x, T(0))));
 }
 
-static __device__ __forceinline__ m4 m4mul(const m4 &A, const m4 &B) {
-    m4 r;
+template <class T>
+static __device__ __forceinline__ mat4<T> m4mul(const mat4<T> &A,
+                                                const mat4<T> &B) {
+    mat4<T> r;
     r.a11 = cadd(cmul(A.a11, B.a11), cmul(A.a12, B.a21));
     r.a12 = cadd(cmul(A.a11, B.a12), cmul(A.a12, B.a22));
     r.a21 = cadd(cmul(A.a21, B.a11), cmul(A.a22, B.a21));
@@ -79,8 +107,10 @@ static __device__ __forceinline__ m4 m4mul(const m4 &A, const m4 &B) {
     return r;
 }
 
-static __device__ __forceinline__ m4 m4add(const m4 &A, const m4 &B) {
-    m4 r;
+template <class T>
+static __device__ __forceinline__ mat4<T> m4add(const mat4<T> &A,
+                                                const mat4<T> &B) {
+    mat4<T> r;
     r.a11 = cadd(A.a11, B.a11);
     r.a12 = cadd(A.a12, B.a12);
     r.a21 = cadd(A.a21, B.a21);
@@ -89,13 +119,15 @@ static __device__ __forceinline__ m4 m4add(const m4 &A, const m4 &B) {
 }
 
 // inv(I - K)
-static __device__ __forceinline__ m4 m4inv_of_eye_minus(const m4 &K) {
-    cf m11 = cmk(1.0f - K.a11.re, -K.a11.im);
-    cf m12 = cmk(-K.a12.re, -K.a12.im);
-    cf m21 = cmk(-K.a21.re, -K.a21.im);
-    cf m22 = cmk(1.0f - K.a22.re, -K.a22.im);
-    cf idet = cinv(csub(cmul(m11, m22), cmul(m12, m21)));
-    m4 r;
+template <class T>
+static __device__ __forceinline__ mat4<T> m4inv_of_eye_minus(
+        const mat4<T> &K) {
+    cplx<T> m11 = cmk(T(1) - K.a11.re, -K.a11.im);
+    cplx<T> m12 = cmk(-K.a12.re, -K.a12.im);
+    cplx<T> m21 = cmk(-K.a21.re, -K.a21.im);
+    cplx<T> m22 = cmk(T(1) - K.a22.re, -K.a22.im);
+    cplx<T> idet = cinv(csub(cmul(m11, m22), cmul(m12, m21)));
+    mat4<T> r;
     r.a11 = cmul(m22, idet);
     r.a12 = cmul(cneg(m12), idet);
     r.a21 = cmul(cneg(m21), idet);
@@ -105,81 +137,85 @@ static __device__ __forceinline__ m4 m4inv_of_eye_minus(const m4 &K) {
 
 // P-SV R/T matrices of a welded interface (greens.cpp:19-85;
 // pallas_rf._interface_coeffs).  out[0..3] = rd, td, ru, tu.
+template <class T>
 struct rt_table {
-    cf rpp, a_core, b_core, tpp, tps, rss, tss, tsp;
+    cplx<T> rpp, a_core, b_core, tpp, tps, rss, tss, tsp;
 };
 
-static __device__ __forceinline__ rt_table rt_half(
-        cf d1, cf d2, float rho_i, cf aa, cf bb, cf cross, cf mix_a,
-        cf mix_b, float rss_sign, float rho1, float rho2, float c,
-        float t1, cf tb, cf t4, cf a1b2, cf a2b1) {
-    rt_table r;
-    cf t5 = cinv(cadd(d1, d2));
-    cf t7 = cscale(2.0f * rho_i, t5);
+template <class T>
+static __device__ __forceinline__ rt_table<T> rt_half(
+        cplx<T> d1, cplx<T> d2, T rho_i, cplx<T> aa, cplx<T> bb,
+        cplx<T> cross, cplx<T> mix_a, cplx<T> mix_b, T rss_sign, T rho1,
+        T rho2, T c, T t1, cplx<T> tb, cplx<T> t4, cplx<T> a1b2,
+        cplx<T> a2b1) {
+    rt_table<T> r;
+    cplx<T> t5 = cinv(cadd(d1, d2));
+    cplx<T> t7 = cscale(T(2) * rho_i, t5);
     r.rpp = cmul(csub(d2, d1), t5);
-    cf core = cmul(t5, cross);
+    cplx<T> core = cmul(t5, cross);
     r.a_core = cmul(aa, core);
     r.b_core = cmul(bb, core);
     r.tpp = cmul(aa, cmul(t7, tb));
     r.tps = cmul(aa, cmul(t7, cadd(creal(t1), cscale(c, mix_a))));
     r.rss = cmul(csub(csub(d2, d1),
-                      cscale(rss_sign * 2.0f * rho1 * rho2, csub(a1b2, a2b1))),
+                      cscale(rss_sign * T(2) * rho1 * rho2,
+                             csub(a1b2, a2b1))),
                  t5);
     r.tss = cmul(bb, cmul(t7, t4));
     r.tsp = cmul(bb, cmul(t7, cadd(creal(t1), cscale(c, mix_b))));
     return r;
 }
 
+template <class T>
 static __device__ __forceinline__ void interface_coeffs(
-        float p, float vp1, float vs1, float rho1, float vp2, float vs2,
-        float rho2, m4 out[4]) {
-    float mue1 = rho1 * vs1 * vs1;
-    float mue2 = rho2 * vs2 * vs2;
-    float c = 2.0f * (mue1 - mue2);
-    float u2 = p * p;
-    float cu2 = c * u2;
-    cf a1 = csqrt_conj_real(1.0f / (vp1 * vp1) - u2);
-    cf a2 = csqrt_conj_real(1.0f / (vp2 * vp2) - u2);
-    cf b1 = csqrt_conj_real(1.0f / (vs1 * vs1) - u2);
-    cf b2 = csqrt_conj_real(1.0f / (vs2 * vs2) - u2);
-    float t1 = cu2 - rho1 + rho2;
-    float t2 = cu2 - rho1;
-    float t3 = cu2 + rho2;
-    cf t4 = csub(cscale(t3, a1), cscale(t2, a2));
-    cf a1b1 = cmul(a1, b1);
-    cf a2b2 = cmul(a2, b2);
-    cf a1b2 = cmul(a1, b2);
-    cf a2b1 = cmul(a2, b1);
-    cf abab = cmul(a1b1, a2b2);
-    cf tb = csub(cscale(t3, b1), cscale(t2, b2));
-    float rr = rho1 * rho2;
+        T p, T vp1, T vs1, T rho1, T vp2, T vs2, T rho2, mat4<T> out[4]) {
+    T mue1 = rho1 * vs1 * vs1;
+    T mue2 = rho2 * vs2 * vs2;
+    T c = T(2) * (mue1 - mue2);
+    T u2 = p * p;
+    T cu2 = c * u2;
+    cplx<T> a1 = csqrt_conj_real(T(1) / (vp1 * vp1) - u2);
+    cplx<T> a2 = csqrt_conj_real(T(1) / (vp2 * vp2) - u2);
+    cplx<T> b1 = csqrt_conj_real(T(1) / (vs1 * vs1) - u2);
+    cplx<T> b2 = csqrt_conj_real(T(1) / (vs2 * vs2) - u2);
+    T t1 = cu2 - rho1 + rho2;
+    T t2 = cu2 - rho1;
+    T t3 = cu2 + rho2;
+    cplx<T> t4 = csub(cscale(t3, a1), cscale(t2, a2));
+    cplx<T> a1b1 = cmul(a1, b1);
+    cplx<T> a2b2 = cmul(a2, b2);
+    cplx<T> a1b2 = cmul(a1, b2);
+    cplx<T> a2b1 = cmul(a2, b1);
+    cplx<T> abab = cmul(a1b1, a2b2);
+    cplx<T> tb = csub(cscale(t3, b1), cscale(t2, b2));
+    T rr = rho1 * rho2;
 
-    cf d1d = cadd(cadd(creal(t1 * t1 * u2), cscale(t2 * t2, a2b2)),
-                  cscale(rr, a2b1));
-    cf d2d = cadd(cadd(cscale(c * c * u2, abab), cscale(t3 * t3, a1b1)),
-                  cscale(rr, a1b2));
-    cf cross_d = cadd(creal(t1 * t3), cscale(c * t2, a2b2));
-    rt_table d = rt_half(d1d, d2d, rho1, a1, b1, cross_d, a2b1, a1b2, 1.0f,
-                         rho1, rho2, c, t1, tb, t4, a1b2, a2b1);
+    cplx<T> d1d = cadd(cadd(creal(t1 * t1 * u2), cscale(t2 * t2, a2b2)),
+                       cscale(rr, a2b1));
+    cplx<T> d2d = cadd(cadd(cscale(c * c * u2, abab), cscale(t3 * t3, a1b1)),
+                       cscale(rr, a1b2));
+    cplx<T> cross_d = cadd(creal(t1 * t3), cscale(c * t2, a2b2));
+    rt_table<T> d = rt_half(d1d, d2d, rho1, a1, b1, cross_d, a2b1, a1b2,
+                            T(1), rho1, rho2, c, t1, tb, t4, a1b2, a2b1);
     out[0].a11 = d.rpp;
-    out[0].a12 = cscale(2.0f * p, d.b_core);
-    out[0].a21 = cscale(-2.0f * p, d.a_core);
+    out[0].a12 = cscale(T(2) * p, d.b_core);
+    out[0].a21 = cscale(T(-2) * p, d.a_core);
     out[0].a22 = d.rss;
     out[1].a11 = d.tpp;
     out[1].a12 = cscale(p, d.tsp);
     out[1].a21 = cscale(-p, d.tps);
     out[1].a22 = d.tss;
 
-    cf d1u = cadd(cadd(creal(t1 * t1 * u2), cscale(t3 * t3, a1b1)),
-                  cscale(rr, a1b2));
-    cf d2u = cadd(cadd(cscale(c * c * u2, abab), cscale(t2 * t2, a2b2)),
-                  cscale(rr, a2b1));
-    cf cross_u = cadd(creal(t1 * t2), cscale(c * t3, a1b1));
-    rt_table u = rt_half(d1u, d2u, rho2, a2, b2, cross_u, a1b2, a2b1, -1.0f,
-                         rho1, rho2, c, t1, tb, t4, a1b2, a2b1);
+    cplx<T> d1u = cadd(cadd(creal(t1 * t1 * u2), cscale(t3 * t3, a1b1)),
+                       cscale(rr, a1b2));
+    cplx<T> d2u = cadd(cadd(cscale(c * c * u2, abab), cscale(t2 * t2, a2b2)),
+                       cscale(rr, a2b1));
+    cplx<T> cross_u = cadd(creal(t1 * t2), cscale(c * t3, a1b1));
+    rt_table<T> u = rt_half(d1u, d2u, rho2, a2, b2, cross_u, a1b2, a2b1,
+                            T(-1), rho1, rho2, c, t1, tb, t4, a1b2, a2b1);
     out[2].a11 = u.rpp;
-    out[2].a12 = cscale(-2.0f * p, u.b_core);
-    out[2].a21 = cscale(2.0f * p, u.a_core);
+    out[2].a12 = cscale(T(-2) * p, u.b_core);
+    out[2].a21 = cscale(T(2) * p, u.a_core);
     out[2].a22 = u.rss;
     out[3].a11 = u.tpp;
     out[3].a12 = cscale(p, u.tsp);
@@ -188,37 +224,39 @@ static __device__ __forceinline__ void interface_coeffs(
 }
 
 // free-surface P-SV reflection for upgoing waves (greens.cpp:87-112)
-static __device__ __forceinline__ m4 free_surface(float p, float vp, float vs) {
-    float u2 = p * p;
-    cf a = csqrt_plain_real(1.0f / (vp * vp) - u2);
-    cf b = csqrt_plain_real(1.0f / (vs * vs) - u2);
-    float t1 = 2.0f * vs * vs;
-    float t2 = t1 * u2 - 1.0f;
-    cf ab = cscale(t1 * t1 * u2, cmul(a, b));
-    cf d = cadd(creal(t2 * t2), ab);
-    cf t3 = cdiv(creal(2.0f * t1 * p * t2), d);
-    m4 r;
+template <class T>
+static __device__ __forceinline__ mat4<T> free_surface(T p, T vp, T vs) {
+    T u2 = p * p;
+    cplx<T> a = csqrt_plain_real(T(1) / (vp * vp) - u2);
+    cplx<T> b = csqrt_plain_real(T(1) / (vs * vs) - u2);
+    T t1 = T(2) * vs * vs;
+    T t2 = t1 * u2 - T(1);
+    cplx<T> ab = cscale(t1 * t1 * u2, cmul(a, b));
+    cplx<T> d = cadd(creal(t2 * t2), ab);
+    cplx<T> t3 = cdiv(creal(T(2) * t1 * p * t2), d);
+    mat4<T> r;
     r.a11 = cdiv(csub(ab, creal(t2 * t2)), d);
-    r.a12 = cscale(-1.0f, cmul(b, t3));
+    r.a12 = cscale(T(-1), cmul(b, t3));
     r.a21 = cmul(a, t3);
     r.a22 = r.a11;
     return r;
 }
 
 // free-surface displacement matrix (Mueller eq. 89)
-static __device__ __forceinline__ m4 displacement(float p, float vp, float vs) {
-    float vs2 = vs * vs;
-    float p2 = p * p;
-    float x = 1.0f - 2.0f * vs2 * p2;
-    cf a1 = csqrt_conj_real(1.0f / (vp * vp) - p2);
-    cf b1 = csqrt_conj_real(1.0f / vs2 - p2);
-    cf ab = cmul(a1, b1);
-    cf q = cinv(cadd(creal(x * x), cscale(4.0f * vs2 * vs2 * p2, ab)));
-    cf qpab = cmul(q, cscale(p, ab));
-    m4 r;
-    r.a11 = cscale(2.0f * vs2, qpab);
+template <class T>
+static __device__ __forceinline__ mat4<T> displacement(T p, T vp, T vs) {
+    T vs2 = vs * vs;
+    T p2 = p * p;
+    T x = T(1) - T(2) * vs2 * p2;
+    cplx<T> a1 = csqrt_conj_real(T(1) / (vp * vp) - p2);
+    cplx<T> b1 = csqrt_conj_real(T(1) / vs2 - p2);
+    cplx<T> ab = cmul(a1, b1);
+    cplx<T> q = cinv(cadd(creal(x * x), cscale(T(4) * vs2 * vs2 * p2, ab)));
+    cplx<T> qpab = cmul(q, cscale(p, ab));
+    mat4<T> r;
+    r.a11 = cscale(T(2) * vs2, qpab);
     r.a12 = cscale(x, cmul(q, b1));
     r.a21 = cscale(x, cmul(q, a1));
-    r.a22 = cscale(-2.0f * vs2, qpab);
+    r.a22 = cscale(T(-2) * vs2, qpab);
     return r;
 }

@@ -200,22 +200,26 @@ __device__ __forceinline__ void sphere_slot(float zt, float zb, float vp,
 }
 
 // A tile's layer planes in shared memory, [plane][layer][chain]: slot
-// i of chain c of a plane at i * tile + c.
-struct Planes {
-    float *h, *vp, *vs, *rho;
+// i of chain c of a plane at i * tile + c.  K1 is float; K6 and the RF
+// functions below are templates on the scalar type T (float, and double
+// for K6), their literals T(...).
+template <class T>
+struct Planes_t {
+    T *h, *vp, *vs, *rho;
     int tile;
 };
+using Planes = Planes_t<float>;
 
 // rfmini flattening (R = 6371 km) of one slot in place
 // (pallas_prep._rf_rows): zt and z_bot are the chain's running depths
 // at the slot's top and bottom.  Shared by K1 and K6.
-__device__ __forceinline__ void flatten_slot(float zt, float z_bot, float &h,
-                                             float &vp, float &vs,
-                                             float &rho) {
-    const float R = 6371.0f;
-    float q_top = R / (R - zt);
-    float zf_top = R * logf(q_top);
-    float zf_bot = R * logf(R / (R - z_bot));
+template <class T>
+__device__ __forceinline__ void flatten_slot(T zt, T z_bot, T &h, T &vp,
+                                             T &vs, T &rho) {
+    const T R = T(6371);
+    T q_top = R / (R - zt);
+    T zf_top = R * mlog(q_top);
+    T zf_bot = R * mlog(R / (R - z_bot));
     h = zf_bot - zf_top;
     vp = vp * q_top;
     vs = vs * q_top;
@@ -224,10 +228,11 @@ __device__ __forceinline__ void flatten_slot(float zt, float z_bot, float &h,
 
 // The running depths zt[0..nl] of chain c (zt[i + 1] = zt[i] + h[i],
 // from 0).
-__device__ __forceinline__ void running_depths(int nl, int c, const Planes &f,
-                                               float *zt) {
-    float acc = 0.0f;
-    zt[c] = 0.0f;
+template <class T>
+__device__ __forceinline__ void running_depths(int nl, int c,
+                                               const Planes_t<T> &f, T *zt) {
+    T acc = T(0);
+    zt[c] = T(0);
     for (int i = 0; i < nl; ++i) {
         acc = acc + f.h[i * f.tile + c];
         zt[(i + 1) * f.tile + c] = acc;
@@ -235,8 +240,10 @@ __device__ __forceinline__ void running_depths(int nl, int c, const Planes &f,
 }
 
 // Flattens the tile's nl x tc slots in place, one item per slot.
-__device__ __forceinline__ void flatten_tile(int nl, int tc, const Planes &f,
-                                             const float *zt) {
+template <class T>
+__device__ __forceinline__ void flatten_tile(int nl, int tc,
+                                             const Planes_t<T> &f,
+                                             const T *zt) {
     for (int k = threadIdx.x; k < nl * tc; k += blockDim.x) {
         int i = k / tc, c = k - i * tc;
         int s = i * f.tile + c;
@@ -263,23 +270,23 @@ __device__ __forceinline__ int rf_items(int nl, int tc,
 // displacement and free-surface matrices and skip depth, or one pack
 // row (flattened h, vp, vs, the slowness, or padding).  ``coefs`` and
 // ``pack`` point at the tile's first chain.  Shared by K1 and K6.
-__device__ __forceinline__ void rf_item(int k, int nl, int C, int tc,
-                                        float p, int wave,
-                                        const PackLayout &lay,
-                                        const Planes &f,
-                                        float *__restrict__ coefs,
-                                        float *__restrict__ pack) {
-    const int T = f.tile;
+template <class T>
+__device__ __forceinline__ void rf_item(int k, int nl, int C, int tc, T p,
+                                        int wave, const PackLayout &lay,
+                                        const Planes_t<T> &f,
+                                        T *__restrict__ coefs,
+                                        T *__restrict__ pack) {
+    const int TL = f.tile;
     const int n_if = (nl - 1) * tc;
     if (k < n_if) {
         int l = k / tc, c = k - l * tc;
-        int s = l * T + c;
-        m4 mats[4];
-        interface_coeffs(p, f.vp[s], f.vs[s], f.rho[s], f.vp[s + T],
-                         f.vs[s + T], f.rho[s + T], mats);
-        float *out = coefs + (size_t)l * 32 * C + c;
+        int s = l * TL + c;
+        mat4<T> mats[4];
+        interface_coeffs(p, f.vp[s], f.vs[s], f.rho[s], f.vp[s + TL],
+                         f.vs[s + TL], f.rho[s + TL], mats);
+        T *out = coefs + (size_t)l * 32 * C + c;
         for (int m = 0; m < 4; ++m) {
-            const cf *e = &mats[m].a11;
+            const cplx<T> *e = &mats[m].a11;
             for (int j = 0; j < 4; ++j) {
                 out[(size_t)(m * 8 + 2 * j) * C] = e[j].re;
                 out[(size_t)(m * 8 + 2 * j + 1) * C] = e[j].im;
@@ -291,50 +298,51 @@ __device__ __forceinline__ void rf_item(int k, int nl, int C, int tc,
     if (k < tc) {
         const int c = k;
         // direct-arrival time of the incident wave
-        const float *v = wave == 0 ? f.vp : f.vs;
-        float t0 = 0.0f;
+        const T *v = wave == 0 ? f.vp : f.vs;
+        T t0 = T(0);
         for (int i = 0; i < nl; ++i) {
-            float vi = v[i * T + c];
-            float qv = sqrtf(fmaxf(1.0f / (vi * vi) - p * p, 0.0f));
-            t0 = t0 + (i < nl - 1 ? f.h[i * T + c] : -1.0f) * qv;
+            T vi = v[i * TL + c];
+            T qv = msqrt(mmax(T(1) / (vi * vi) - p * p, T(0)));
+            t0 = t0 + (i < nl - 1 ? f.h[i * TL + c] : T(-1)) * qv;
         }
         int depth = 0;
         for (int l = 0; l < nl - 1; ++l) {
-            int s = l * T + c;
-            bool real = f.h[s] > 0.0f || f.vp[s] != f.vp[s + T]
-                        || f.vs[s] != f.vs[s + T] || f.rho[s] != f.rho[s + T];
+            int s = l * TL + c;
+            bool real = f.h[s] > T(0) || f.vp[s] != f.vp[s + TL]
+                        || f.vs[s] != f.vs[s + TL]
+                        || f.rho[s] != f.rho[s + TL];
             if (real) depth = l;
         }
-        m4 hm = displacement(p, f.vp[c], f.vs[c]);
-        m4 nt = free_surface(p, f.vp[c], f.vs[c]);
-        float *pk = pack + c;
+        mat4<T> hm = displacement(p, f.vp[c], f.vs[c]);
+        mat4<T> nt = free_surface(p, f.vp[c], f.vs[c]);
+        T *pk = pack + c;
         pk[(size_t)lay.t0 * C] = t0;
-        const cf *hmv = &hm.a11;
-        const cf *ntv = &nt.a11;
+        const cplx<T> *hmv = &hm.a11;
+        const cplx<T> *ntv = &nt.a11;
         for (int j = 0; j < 4; ++j) {
             pk[(size_t)(lay.hmat + 2 * j) * C] = hmv[j].re;
             pk[(size_t)(lay.hmat + 2 * j + 1) * C] = hmv[j].im;
             pk[(size_t)(lay.nt + 2 * j) * C] = ntv[j].re;
             pk[(size_t)(lay.nt + 2 * j + 1) * C] = ntv[j].im;
         }
-        pk[(size_t)lay.depth * C] = (float)depth;
+        pk[(size_t)lay.depth * C] = (T)depth;
         return;
     }
     k -= tc;
     int q = k / tc, c = k - q * tc;
     int row;
-    float val;
+    T val;
     if (q < 3 * nl) {
         int plane = q / nl, i = q - plane * nl;
-        const float *src = plane == 0 ? f.h : plane == 1 ? f.vp : f.vs;
+        const T *src = plane == 0 ? f.h : plane == 1 ? f.vp : f.vs;
         row = (plane == 0 ? lay.h : plane == 1 ? lay.vp : lay.vs) + i;
-        val = src[i * T + c];
+        val = src[i * TL + c];
     } else if (q == 3 * nl) {
         row = lay.p;
         val = p;
     } else {
         row = lay.depth + (q - 3 * nl);   // padding after the depth row
-        val = 0.0f;
+        val = T(0);
     }
     pack[(size_t)row * C + c] = val;
 }
@@ -570,25 +578,25 @@ prep_sph_kernel(const float *__restrict__ vs_t,
 // K6: the RF operands alone, from (NL, C) layer planes; FLAT: with the
 // rfmini flattening (pallas_prep._rf_rows ``flattening``), else the raw
 // layers go straight into the tables, the scalars and the pack (the
-// unflattened arm runs neither the running depths nor the logs).
-template <bool FLAT>
+// unflattened arm runs neither the running depths nor the logs).  T is
+// the scalar type: float, or double for the float64 evaluation.
+template <class T, bool FLAT>
 __global__ void __launch_bounds__(PREP_MAX_THREADS)
-rf_prep_kernel(const float *__restrict__ h_in,
-               const float *__restrict__ vp_in,
-               const float *__restrict__ vs_in,
-               const float *__restrict__ rho_in, int nl, int C, float p,
-               int wave, PackLayout lay, int tile, float *__restrict__ out) {
+rf_prep_kernel(const T *__restrict__ h_in, const T *__restrict__ vp_in,
+               const T *__restrict__ vs_in, const T *__restrict__ rho_in,
+               int nl, int C, T p, int wave, PackLayout lay, int tile,
+               T *__restrict__ out) {
     extern __shared__ float4 smem4[];
-    float *sm = reinterpret_cast<float *>(smem4);
-    const int T = blockDim.x;
+    T *sm = reinterpret_cast<T *>(smem4);
+    const int NT = blockDim.x;
     const int tid = threadIdx.x;
     const int c_base = blockIdx.x * tile;
     const int tc = min(tile, C - c_base);
     const int P = nl * tile;
-    Planes f = {sm, sm + P, sm + 2 * P, sm + 3 * P, tile};
-    float *s_zt = sm + 4 * P;                         // (nl + 1) x tile
+    Planes_t<T> f = {sm, sm + P, sm + 2 * P, sm + 3 * P, tile};
+    T *s_zt = sm + 4 * P;                             // (nl + 1) x tile
 
-    for (int k = tid; k < nl * tc; k += T) {
+    for (int k = tid; k < nl * tc; k += NT) {
         int i = k / tc, c = k - i * tc;
         size_t g = (size_t)i * C + c_base + c;
         int s = i * tile + c;
@@ -599,16 +607,33 @@ rf_prep_kernel(const float *__restrict__ h_in,
     }
     __syncthreads();
     if constexpr (FLAT) {
-        for (int c = tid; c < tc; c += T) running_depths(nl, c, f, s_zt);
+        for (int c = tid; c < tc; c += NT) running_depths(nl, c, f, s_zt);
         __syncthreads();
         flatten_tile(nl, tc, f, s_zt);
         __syncthreads();
     }
 
     const int items = rf_items(nl, tc, lay);
-    for (int k = tid; k < items; k += T)
+    for (int k = tid; k < items; k += NT)
         rf_item(k, nl, C, tc, p, wave, lay, f, out + c_base,
                 out + (size_t)(nl - 1) * 32 * C + c_base);
+}
+
+template <class T>
+int launch_rf_prep(const T *h, const T *vp, const T *vs, const T *rho, int nl,
+                   int C, T p, int wave, int flattening, PackLayout lay,
+                   int threads, int tile, int smem, T *out,
+                   cudaStream_t stream) {
+    auto kernel = flattening ? rf_prep_kernel<T, true>
+                             : rf_prep_kernel<T, false>;
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    kernel<<<(C + tile - 1) / tile, threads, smem, stream>>>(
+        h, vp, vs, rho, nl, C, p, wave, lay, tile, out);
+    return (int)cudaGetLastError();
 }
 
 // Shared floats per chain of K1's and K6's tiles (ops/prep.py
@@ -617,10 +642,11 @@ constexpr int prep_floats(int nl) { return 7 * nl + 3; }
 constexpr int prep_sph_floats(int nl) { return 10 * nl + 3; }
 constexpr int rf_prep_floats(int nl) { return 5 * nl + 1; }
 
-int check_geometry(int nl, int threads, int tile, int smem, int floats) {
+// bytes: the shared bytes per chain of the tile
+int check_geometry(int nl, int threads, int tile, int smem, int bytes) {
     if (nl < 2) return (int)cudaErrorInvalidValue;
     if (threads < 32 || threads > PREP_MAX_THREADS || threads % 32 != 0
-        || tile < 1 || smem < floats * tile * 4)
+        || tile < 1 || smem < bytes * tile)
         return (int)cudaErrorInvalidConfiguration;
     return 0;
 }
@@ -639,8 +665,8 @@ extern "C" int bh_prep(const float *vs_t, const float *z_t, const int *n,
             return (int)cudaErrorInvalidValue;
     if (sw.love && !sw.sph) return (int)cudaErrorInvalidValue;
     if (int e = check_geometry(nl, threads, tile, smem,
-                               sw.sph ? prep_sph_floats(nl)
-                                      : prep_floats(nl)))
+                               4 * (sw.sph ? prep_sph_floats(nl)
+                                           : prep_floats(nl))))
         return e;
     if (C == 0) return 0;
     auto kernel = sw.sph
@@ -662,18 +688,27 @@ extern "C" int bh_rf_prep(const float *h, const float *vp, const float *vs,
                           int tile, int smem, float *out,
                           cudaStream_t stream) {
     if (wave != 0 && wave != 1) return (int)cudaErrorInvalidValue;
-    if (int e = check_geometry(nl, threads, tile, smem, rf_prep_floats(nl)))
+    if (int e = check_geometry(nl, threads, tile, smem,
+                               4 * rf_prep_floats(nl)))
         return e;
     if (C == 0) return 0;
-    auto kernel = flattening ? rf_prep_kernel<true> : rf_prep_kernel<false>;
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (e != cudaSuccess) return (int)e;
-    }
-    kernel<<<(C + tile - 1) / tile, threads, smem, stream>>>(
-        h, vp, vs, rho, nl, C, p, wave, lay, tile, out);
-    return (int)cudaGetLastError();
+    return launch_rf_prep<float>(h, vp, vs, rho, nl, C, p, wave, flattening,
+                                 lay, threads, tile, smem, out, stream);
+}
+
+// K6 in double: the same kernel at the scalar type double
+extern "C" int bh_rf_prep_f64(const double *h, const double *vp,
+                              const double *vs, const double *rho, int nl,
+                              int C, double p, int wave, int flattening,
+                              PackLayout lay, int threads, int tile, int smem,
+                              double *out, cudaStream_t stream) {
+    if (wave != 0 && wave != 1) return (int)cudaErrorInvalidValue;
+    if (int e = check_geometry(nl, threads, tile, smem,
+                               8 * rf_prep_floats(nl)))
+        return e;
+    if (C == 0) return 0;
+    return launch_rf_prep<double>(h, vp, vs, rho, nl, C, p, wave, flattening,
+                                  lay, threads, tile, smem, out, stream);
 }
 
 extern "C" const char *bh_error_string(int code) {

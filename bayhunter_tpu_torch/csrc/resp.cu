@@ -65,36 +65,50 @@
 
 namespace {
 
-// K3's response; ops/rf.py holds the same constants
-constexpr float QP = 500.0f;
-constexpr float QS = 225.0f;
-constexpr float WREF = 6.283185307179586f;  // 2 pi x 1 Hz
-constexpr float PI_F = 3.14159265358979323846f;
+// K3's response; ops/rf.py holds the same constants (Qp 500, Qs 225,
+// the reference frequency 1 Hz: 2 pi x 1 Hz, passed to the kernel)
+constexpr double QP = 500.0;
+constexpr double QS = 225.0;
+constexpr double WREF = 6.283185307179586;  // 2 pi x 1 Hz
+constexpr double PI_D = 3.14159265358979323846;
 
 constexpr int RESP_MAX_THREADS = 256;   // ops/resp.py MAX_THREADS
 // resident blocks per SM that the register allocation must allow at
-// RESP_MAX_THREADS threads (__launch_bounds__): 4 caps a thread at 64
-// registers, 32 warps per SM, without spills
-constexpr int RESP_MIN_BLOCKS = 4;
+// RESP_MAX_THREADS threads (__launch_bounds__): 4 caps a float thread
+// at 64 registers, 32 warps per SM, without spills; a double thread
+// holds twice the bytes in every value and takes 2 (128 registers)
+template <class T>
+constexpr int resp_min_blocks() { return sizeof(T) == 4 ? 4 : 2; }
 // per-chain scalars after the per-layer terms: p, p^2, t0, depth, hmat
 // (8), nt (8)
 constexpr int SC_P = 0, SC_PP = 1, SC_T0 = 2, SC_DEPTH = 3, SC_HMAT = 4,
               SC_NT = 12, N_SC = 20;
 
-// one 2x2 complex matrix (8 floats, 16-byte aligned) from shared memory
-__device__ __forceinline__ m4 lds_m4(const float *p) {
-    float4 a = reinterpret_cast<const float4 *>(p)[0];
-    float4 b = reinterpret_cast<const float4 *>(p)[1];
-    m4 m;
-    m.a11 = cmk(a.x, a.y);
-    m.a12 = cmk(a.z, a.w);
-    m.a21 = cmk(b.x, b.y);
-    m.a22 = cmk(b.z, b.w);
+// one 2x2 complex matrix (8 values, 16-byte aligned) from shared memory
+template <class T>
+__device__ __forceinline__ mat4<T> lds_m4(const T *p) {
+    mat4<T> m;
+    if constexpr (sizeof(T) == 4) {
+        float4 a = reinterpret_cast<const float4 *>(p)[0];
+        float4 b = reinterpret_cast<const float4 *>(p)[1];
+        m.a11 = cmk(a.x, a.y);
+        m.a12 = cmk(a.z, a.w);
+        m.a21 = cmk(b.x, b.y);
+        m.a22 = cmk(b.z, b.w);
+    } else {
+        const double2 *q = reinterpret_cast<const double2 *>(p);
+        double2 a = q[0], b = q[1], c = q[2], d = q[3];
+        m.a11 = cmk(a.x, a.y);
+        m.a12 = cmk(b.x, b.y);
+        m.a21 = cmk(c.x, c.y);
+        m.a22 = cmk(d.x, d.y);
+    }
     return m;
 }
 
-__device__ __forceinline__ m4 m4_of(const float *v) {
-    m4 m;
+template <class T>
+__device__ __forceinline__ mat4<T> m4_of(const T *v) {
+    mat4<T> m;
     m.a11 = cmk(v[0], v[1]);
     m.a12 = cmk(v[2], v[3]);
     m.a21 = cmk(v[4], v[5]);
@@ -102,36 +116,52 @@ __device__ __forceinline__ m4 m4_of(const float *v) {
     return m;
 }
 
+// a chain's skip depth, an int in its record's SC_DEPTH slot
+template <class T>
+__device__ __forceinline__ int *depth_slot(T *sc) {
+    return reinterpret_cast<int *>(sc + SC_DEPTH);
+}
+
+template <class T>
+__device__ __forceinline__ int depth_of(const T *sc) {
+    return *reinterpret_cast<const int *>(sc + SC_DEPTH);
+}
+
 // exp(-i w h qc) of the vertical slowness qc = sqrt(x)
-__device__ __forceinline__ cf phase_of(cf x, float h_l, float w) {
-    cf qc = csqrt_pair(x);
+template <class T>
+__device__ __forceinline__ cplx<T> phase_of(cplx<T> x, T h_l, T w) {
+    cplx<T> qc = csqrt_pair(x);
     return cexp_pair(cmk(w * h_l * qc.im, -w * h_l * qc.re));
 }
 
 // uniform Q: x = 1/v^2 / u(w)^2 - p^2, from r = 1/v^2 and pp = p^2
-__device__ __forceinline__ cf phase(float r, float h_l, float w, float pp,
-                                    cf iu2) {
+template <class T>
+__device__ __forceinline__ cplx<T> phase(T r, T h_l, T w, T pp,
+                                         cplx<T> iu2) {
     return phase_of(cmk(iu2.re * r - pp, iu2.im * r), h_l, w);
 }
 
 // per-layer Q: x = 1/vc^2 - p^2, from piq = pi Q and vim = v (0.5 / Q)
-__device__ __forceinline__ cf phase_q(float v, float piq, float vim,
-                                      float h_l, float w, float pp,
-                                      float lgw) {
-    cf vc = cmk(v * (1.0f + lgw / piq), vim);
-    cf iv2 = cinv(cmul(vc, vc));
+template <class T>
+__device__ __forceinline__ cplx<T> phase_q(T v, T piq, T vim, T h_l, T w,
+                                           T pp, T lgw) {
+    cplx<T> vc = cmk(v * (T(1) + lgw / piq), vim);
+    cplx<T> iv2 = cinv(cmul(vc, vc));
     return phase_of(cmk(iv2.re - pp, iv2.im), h_l, w);
 }
 
-__device__ __forceinline__ cf inv_u2(float lgw, float q) {
-    float piq = PI_F * q;
-    cf u = cmk(1.0f + lgw / piq, 0.5f / q);
+template <class T>
+__device__ __forceinline__ cplx<T> inv_u2(T lgw, T q) {
+    T piq = T(PI_D) * q;
+    cplx<T> u = cmk(T(1) + lgw / piq, T(0.5) / q);
     return cinv(cmul(u, u));
 }
 
-__device__ __forceinline__ m4 sandwich(const m4 &nt, cf e1, cf e2) {
-    cf e12 = cmul(e1, e2);
-    m4 nb;
+template <class T>
+__device__ __forceinline__ mat4<T> sandwich(const mat4<T> &nt, cplx<T> e1,
+                                            cplx<T> e2) {
+    cplx<T> e12 = cmul(e1, e2);
+    mat4<T> nb;
     nb.a11 = cmul(nt.a11, cmul(e1, e1));
     nb.a12 = cmul(nt.a12, e12);
     nb.a21 = cmul(nt.a21, e12);
@@ -139,8 +169,10 @@ __device__ __forceinline__ m4 sandwich(const m4 &nt, cf e1, cf e2) {
     return nb;
 }
 
-__device__ __forceinline__ m4 columns(cf e1, cf e2, const m4 &q) {
-    m4 r;
+template <class T>
+__device__ __forceinline__ mat4<T> columns(cplx<T> e1, cplx<T> e2,
+                                           const mat4<T> &q) {
+    mat4<T> r;
     r.a11 = cmul(e1, q.a11);
     r.a12 = cmul(e1, q.a12);
     r.a21 = cmul(e2, q.a21);
@@ -150,20 +182,19 @@ __device__ __forceinline__ m4 columns(cf e1, cf e2, const m4 &q) {
 
 // The recursion of one lane at angular frequency w through layers
 // 0..depth of a staged chain: ``coef`` its coefficient rows (layer i at
-// i * 32: rd, td, ru, tu, 8 floats each), ``sc`` its scalars;
+// i * 32: rd, td, ru, tu, 8 values each), ``sc`` its scalars;
 // phase_at(i, e1, e2) gives layer i's P and S phase terms.  Writes the
 // lane's (cz, cr) for incidence WAVE at ``out``.  SUPPRESS: the direct
 // downward transmission g = prod_i e_i tu_{i+1}, no reverberations
 // (rf.py step_suppress, :445-455).
-template <int WAVE, bool SUPPRESS, class Phase>
+template <int WAVE, bool SUPPRESS, class T, class Phase>
 __device__ __forceinline__ void transmit(
-        const float *coef, const float *sc, float w, int depth,
-        const Phase &phase_at, size_t out, float *__restrict__ czr,
-        float *__restrict__ czi, float *__restrict__ crr,
-        float *__restrict__ cri) {
-    cf e1, e2;
+        const T *coef, const T *sc, T w, int depth, const Phase &phase_at,
+        size_t out, T *__restrict__ czr, T *__restrict__ czi,
+        T *__restrict__ crr, T *__restrict__ cri) {
+    cplx<T> e1, e2;
     phase_at(0, e1, e2);
-    m4 g;
+    mat4<T> g;
     if constexpr (SUPPRESS) {
         g = columns(e1, e2, lds_m4(coef + 24));
         for (int i = 1; i <= depth; ++i) {
@@ -172,15 +203,15 @@ __device__ __forceinline__ void transmit(
         }
     } else {
         // layer 0: free surface on top
-        m4 nb = sandwich(m4_of(sc + SC_NT), e1, e2);
-        m4 q = m4mul(m4inv_of_eye_minus(m4mul(lds_m4(coef), nb)),
-                     lds_m4(coef + 24));
+        mat4<T> nb = sandwich(m4_of(sc + SC_NT), e1, e2);
+        mat4<T> q = m4mul(m4inv_of_eye_minus(m4mul(lds_m4(coef), nb)),
+                          lds_m4(coef + 24));
         g = columns(e1, e2, q);
-        m4 x = m4mul(nb, q);
+        mat4<T> x = m4mul(nb, q);
         for (int i = 1; i <= depth; ++i) {
             phase_at(i, e1, e2);
-            const float *prev = coef + (i - 1) * 32;  // ru, td of i - 1
-            const float *cur = coef + i * 32;
+            const T *prev = coef + (i - 1) * 32;  // ru, td of i - 1
+            const T *cur = coef + i * 32;
             nb = sandwich(m4add(lds_m4(prev + 16),
                                 m4mul(lds_m4(prev + 8), x)),
                           e1, e2);
@@ -192,11 +223,11 @@ __device__ __forceinline__ void transmit(
     }
 
     // column WAVE of 2 hmat g: rows 0 (R) and 1 (Z)
-    m4 t_full = m4mul(m4_of(sc + SC_HMAT), g);
-    cf cr = cscale(2.0f, WAVE == 0 ? t_full.a11 : t_full.a12);
-    cf cz = cscale(2.0f, WAVE == 0 ? t_full.a21 : t_full.a22);
-    float wt0 = w * sc[SC_T0];
-    cf qq = cmk(cosf(wt0), sinf(wt0));
+    mat4<T> t_full = m4mul(m4_of(sc + SC_HMAT), g);
+    cplx<T> cr = cscale(T(2), WAVE == 0 ? t_full.a11 : t_full.a12);
+    cplx<T> cz = cscale(T(2), WAVE == 0 ? t_full.a21 : t_full.a22);
+    T wt0 = w * sc[SC_T0];
+    cplx<T> qq = cmk(mcos(wt0), msin(wt0));
     cz = cmul(cz, qq);
     cr = cmul(cr, qq);
     czr[out] = cz.re;
@@ -205,8 +236,8 @@ __device__ __forceinline__ void transmit(
     cri[out] = cr.im;
 }
 
-// Shared-memory record of chain cc of the tile, ``cs`` floats from
-// sm + cc * cs (ops/resp.py geometry mirrors it):
+// Shared-memory record of chain cc of the tile, ``cs`` values of the
+// scalar type T from sm + cc * cs (ops/resp.py geometry mirrors it):
 //   [0, (nl-1)*32)             coefficient rows of layers 0..depth
 //   then NK planes of nl       per-layer terms: h, then K3 and every
 //                              elastic arm: 1/vp^2, 1/vs^2; K3r: vp, vs,
@@ -218,22 +249,21 @@ __device__ __forceinline__ void transmit(
 // phase terms, x = 1/v^2 - p^2 with a zero imaginary part and the
 // vertical slowness sqrt(x) still complex (rf.py:372-379), in place of
 // K3's uniform Q and of K3r's per-layer Q (whose contrasts still raise
-// the skip depth).
-template <int WAVE, bool QMODE, int OPT>
-__global__ void __launch_bounds__(RESP_MAX_THREADS, RESP_MIN_BLOCKS)
-resp_kernel(const float *__restrict__ coefs, const float *__restrict__ pack,
-            const float *__restrict__ qp, const float *__restrict__ qs,
-            PackLayout lay, int nl, int C, int F, int nfreq, float dw,
-            float wref, int tile, int cs, float *__restrict__ czr,
-            float *__restrict__ czi, float *__restrict__ crr,
-            float *__restrict__ cri) {
+// the skip depth).  T is float, or double for K3's float64 instances.
+template <class T, int WAVE, bool QMODE, int OPT>
+__global__ void __launch_bounds__(RESP_MAX_THREADS, resp_min_blocks<T>())
+resp_kernel(const T *__restrict__ coefs, const T *__restrict__ pack,
+            const T *__restrict__ qp, const T *__restrict__ qs,
+            PackLayout lay, int nl, int C, int F, int nfreq, T dw, T wref,
+            int tile, int cs, T *__restrict__ czr, T *__restrict__ czi,
+            T *__restrict__ crr, T *__restrict__ cri) {
     constexpr int NK = QMODE ? 7 : 3;
     constexpr bool SUPPRESS = (OPT & 1) != 0;
     constexpr bool ELASTIC = (OPT & 2) != 0;
     extern __shared__ float4 smem4[];
-    float *sm = reinterpret_cast<float *>(smem4);
+    T *sm = reinterpret_cast<T *>(smem4);
     int *s_rows = reinterpret_cast<int *>(sm + tile * cs);  // staged rows
-    const int T = blockDim.x;
+    const int NT = blockDim.x;
     const int tid = threadIdx.x;
     const int c_base = blockIdx.x * tile;
     const int tc = min(tile, C - c_base);
@@ -246,17 +276,17 @@ resp_kernel(const float *__restrict__ coefs, const float *__restrict__ pack,
 
     // pack scalars (the depth as the pack has it), chain-fastest
     constexpr int NROW = 3 + 16;
-    for (int i = tid; i < NROW * tc; i += T) {
+    for (int i = tid; i < NROW * tc; i += NT) {
         int k = i / tc, cc = i - k * tc;
-        float *sc = rec(cc) + s_off;
+        T *sc = rec(cc) + s_off;
         if (k == 0) {
-            float p = P(lay.p, cc);
+            T p = P(lay.p, cc);
             sc[SC_P] = p;
             sc[SC_PP] = p * p;
         } else if (k == 1) {
             sc[SC_T0] = P(lay.t0, cc);
         } else if (k == 2) {
-            reinterpret_cast<int *>(sc)[SC_DEPTH] = (int)P(lay.depth, cc);
+            *depth_slot(sc) = (int)P(lay.depth, cc);
         } else if (k < 11) {
             sc[SC_HMAT + k - 3] = P(lay.hmat + k - 3, cc);
         } else {
@@ -268,78 +298,77 @@ resp_kernel(const float *__restrict__ coefs, const float *__restrict__ pack,
     if constexpr (QMODE) {
         // the pack's depth counts elastic contrasts; a Q contrast below
         // a slot counts too
-        for (int i = tid; i < (nl - 1) * tc; i += T) {
+        for (int i = tid; i < (nl - 1) * tc; i += NT) {
             int l = i / tc, cc = i - l * tc;
-            const float *a = qp + (size_t)l * C + c_base + cc;
-            const float *b = qs + (size_t)l * C + c_base + cc;
+            const T *a = qp + (size_t)l * C + c_base + cc;
+            const T *b = qs + (size_t)l * C + c_base + cc;
             if (__ldg(a) != __ldg(a + C) || __ldg(b) != __ldg(b + C))
-                atomicMax(reinterpret_cast<int *>(rec(cc) + s_off) + SC_DEPTH,
-                          l);
+                atomicMax(depth_slot(rec(cc) + s_off), l);
         }
         __syncthreads();
     }
-    for (int cc = tid; cc < tc; cc += T) {
-        int *d = reinterpret_cast<int *>(rec(cc) + s_off) + SC_DEPTH;
+    for (int cc = tid; cc < tc; cc += NT) {
+        int *d = depth_slot(rec(cc) + s_off);
         *d = min(*d, nl - 2);
         atomicMax(s_rows, (*d + 1) * 32);
     }
     __syncthreads();
 
     // per-layer terms of layers 0..depth, then the coefficient rows
-    for (int i = tid; i < nl * tc; i += T) {
+    for (int i = tid; i < nl * tc; i += NT) {
         int l = i / tc, cc = i - l * tc;
-        float *r = rec(cc);
-        if (l > reinterpret_cast<const int *>(r + s_off)[SC_DEPTH]) continue;
-        float *kp = r + k_off + l;
-        float vp = P(lay.vp + l, cc), vs = P(lay.vs + l, cc);
+        T *r = rec(cc);
+        if (l > depth_of(r + s_off)) continue;
+        T *kp = r + k_off + l;
+        T vp = P(lay.vp + l, cc), vs = P(lay.vs + l, cc);
         kp[0] = P(lay.h + l, cc);
         if constexpr (QMODE && !ELASTIC) {
-            float qpl = __ldg(qp + (size_t)l * C + c_base + cc);
-            float qsl = __ldg(qs + (size_t)l * C + c_base + cc);
+            T qpl = __ldg(qp + (size_t)l * C + c_base + cc);
+            T qsl = __ldg(qs + (size_t)l * C + c_base + cc);
             kp[nl] = vp;
             kp[2 * nl] = vs;
-            kp[3 * nl] = PI_F * qpl;
-            kp[4 * nl] = vp * (0.5f / qpl);
-            kp[5 * nl] = PI_F * qsl;
-            kp[6 * nl] = vs * (0.5f / qsl);
+            kp[3 * nl] = T(PI_D) * qpl;
+            kp[4 * nl] = vp * (T(0.5) / qpl);
+            kp[5 * nl] = T(PI_D) * qsl;
+            kp[6 * nl] = vs * (T(0.5) / qsl);
         } else {
-            kp[nl] = 1.0f / (vp * vp);
-            kp[2 * nl] = 1.0f / (vs * vs);
+            kp[nl] = T(1) / (vp * vp);
+            kp[2 * nl] = T(1) / (vs * vs);
         }
     }
     const int rows = *s_rows;
-    for (int i = tid; i < rows * tc; i += T) {
+    for (int i = tid; i < rows * tc; i += NT) {
         int row = i / tc, cc = i - row * tc;
-        float *r = rec(cc);
-        int depth = reinterpret_cast<const int *>(r + s_off)[SC_DEPTH];
+        T *r = rec(cc);
+        int depth = depth_of(r + s_off);
         if (row < (depth + 1) * 32)
             r[row] = __ldg(coefs + (size_t)row * C + c_base + cc);
     }
     __syncthreads();
 
-    for (int j = tid; j < tc * F; j += T) {
+    for (int j = tid; j < tc * F; j += NT) {
         const int cc = j / F;
         const int f = j - cc * F;
-        const float *r = rec(cc);
-        const float *kt = r + k_off;
-        const float *sc = r + s_off;
-        const int depth = reinterpret_cast<const int *>(sc)[SC_DEPTH];
-        const float pp = sc[SC_PP];
+        const T *r = rec(cc);
+        const T *kt = r + k_off;
+        const T *sc = r + s_off;
+        const int depth = depth_of(sc);
+        const T pp = sc[SC_PP];
         const size_t out = (size_t)c_base * F + j;
-        float jf = (float)min(f, nfreq - 1);
-        float w = dw * jf;
-        float lgw = jf > 0.0f ? logf(fmaxf(w, 1e-30f) / wref) : 0.0f;
+        T jf = (T)min(f, nfreq - 1);
+        T w = dw * jf;
+        T lgw = jf > T(0) ? mlog(mmax(w, T(1e-30)) / wref) : T(0);
         if constexpr (ELASTIC) {
-            auto phase_at = [&](int i, cf &e1, cf &e2) {
-                float h_l = kt[i];
-                e1 = phase_of(cmk(kt[nl + i] - pp, 0.0f), h_l, w);
-                e2 = phase_of(cmk(kt[2 * nl + i] - pp, 0.0f), h_l, w);
+            auto phase_at = [&](int i, cplx<T> &e1, cplx<T> &e2) {
+                T h_l = kt[i];
+                e1 = phase_of(cmk(kt[nl + i] - pp, T(0)), h_l, w);
+                e2 = phase_of(cmk(kt[2 * nl + i] - pp, T(0)), h_l, w);
             };
             transmit<WAVE, SUPPRESS>(r, sc, w, depth, phase_at, out, czr,
                                      czi, crr, cri);
         } else if constexpr (QMODE) {
-            auto phase_at = [&](int i, cf &e1, cf &e2) {
-                float h_l = kt[i];
+            auto phase_at = [&](int i, cplx<T> &e1, cplx<T> &e2) {
+                T h_l = kt[i];
                 e1 = phase_q(kt[nl + i], kt[3 * nl + i], kt[4 * nl + i], h_l,
                              w, pp, lgw);
                 e2 = phase_q(kt[2 * nl + i], kt[5 * nl + i], kt[6 * nl + i],
@@ -348,10 +377,10 @@ resp_kernel(const float *__restrict__ coefs, const float *__restrict__ pack,
             transmit<WAVE, SUPPRESS>(r, sc, w, depth, phase_at, out, czr,
                                      czi, crr, cri);
         } else {
-            cf iu2_p = inv_u2(lgw, QP);
-            cf iu2_s = inv_u2(lgw, QS);
-            auto phase_at = [&](int i, cf &e1, cf &e2) {
-                float h_l = kt[i];
+            cplx<T> iu2_p = inv_u2(lgw, T(QP));
+            cplx<T> iu2_s = inv_u2(lgw, T(QS));
+            auto phase_at = [&](int i, cplx<T> &e1, cplx<T> &e2) {
+                T h_l = kt[i];
                 e1 = phase(kt[nl + i], h_l, w, pp, iu2_p);
                 e2 = phase(kt[2 * nl + i], h_l, w, pp, iu2_s);
             };
@@ -361,52 +390,54 @@ resp_kernel(const float *__restrict__ coefs, const float *__restrict__ pack,
     }
 }
 
-template <int WAVE, bool QMODE, int OPT>
-int launch(const float *coefs, const float *pack, const float *qp,
-           const float *qs, PackLayout lay, int nl, int C, int F, int nsamp,
-           float dw, float wref, int threads, int tile, int cs, int smem,
-           float *czr, float *czi, float *crr, float *cri,
-           cudaStream_t stream) {
+template <class T, int WAVE, bool QMODE, int OPT>
+int launch(const T *coefs, const T *pack, const T *qp, const T *qs,
+           PackLayout lay, int nl, int C, int F, int nsamp, T dw, T wref,
+           int threads, int tile, int cs, int smem, T *czr, T *czi, T *crr,
+           T *cri, cudaStream_t stream) {
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
-            resp_kernel<WAVE, QMODE, OPT>,
+            resp_kernel<T, WAVE, QMODE, OPT>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (e != cudaSuccess) return (int)e;
     }
     int blocks = (C + tile - 1) / tile;
-    resp_kernel<WAVE, QMODE, OPT><<<blocks, threads, smem, stream>>>(
+    resp_kernel<T, WAVE, QMODE, OPT><<<blocks, threads, smem, stream>>>(
         coefs, pack, qp, qs, lay, nl, C, F, nsamp / 2 + 1, dw, wref, tile,
         cs, czr, czi, crr, cri);
     return (int)cudaGetLastError();
 }
 
-using Launch = int (*)(const float *, const float *, const float *,
-                       const float *, PackLayout, int, int, int, int, float,
-                       float, int, int, int, int, float *, float *, float *,
-                       float *, cudaStream_t);
+template <class T>
+using Launch = int (*)(const T *, const T *, const T *, const T *,
+                       PackLayout, int, int, int, int, T, T, int, int, int,
+                       int, T *, T *, T *, T *, cudaStream_t);
 
 // the instance of incidence ``wave`` and options bitmask ``options``
-template <bool QMODE>
-Launch arm(int wave, int options) {
-    static const Launch table[8] = {
-        launch<0, QMODE, 0>, launch<0, QMODE, 1>, launch<0, QMODE, 2>,
-        launch<0, QMODE, 3>, launch<1, QMODE, 0>, launch<1, QMODE, 1>,
-        launch<1, QMODE, 2>, launch<1, QMODE, 3>};
+template <class T, bool QMODE>
+Launch<T> arm(int wave, int options) {
+    static const Launch<T> table[8] = {
+        launch<T, 0, QMODE, 0>, launch<T, 0, QMODE, 1>,
+        launch<T, 0, QMODE, 2>, launch<T, 0, QMODE, 3>,
+        launch<T, 1, QMODE, 0>, launch<T, 1, QMODE, 1>,
+        launch<T, 1, QMODE, 2>, launch<T, 1, QMODE, 3>};
     return table[wave * 4 + options];
 }
 
-int check_geometry(int nl, int threads, int tile, int cs, int smem, int nk) {
+// ``elem``: the bytes of the scalar type
+int check_geometry(int nl, int threads, int tile, int cs, int smem, int nk,
+                   int elem) {
     if (threads < 32 || threads > RESP_MAX_THREADS || threads % 32 != 0
         || tile < 1 || nl < 2 || cs % 4 != 0
         || cs < (nl - 1) * 32 + nk * nl + N_SC
-        || smem < (tile * cs + 1) * 4)
+        || smem < tile * cs * elem + 4)
         return (int)cudaErrorInvalidConfiguration;
     return 0;
 }
 
 }  // namespace
 
-// threads, tile, the chain record's floats cs and smem come from
+// threads, tile, the chain record's values cs and smem come from
 // ops/resp.py geometry; options is the bitmask of rf.py
 // SUPPRESS_MULTIPLES (1) and WITHOUT_ANELASTICITY (2)
 extern "C" int bh_resp(const float *coefs, const float *pack,
@@ -416,11 +447,27 @@ extern "C" int bh_resp(const float *coefs, const float *pack,
                        float *crr, float *cri, cudaStream_t stream) {
     if (wave != 0 && wave != 1) return (int)cudaErrorInvalidValue;
     if (options < 0 || options > 3) return (int)cudaErrorInvalidValue;
-    if (int e = check_geometry(nl, threads, tile, cs, smem, 3)) return e;
+    if (int e = check_geometry(nl, threads, tile, cs, smem, 3, 4)) return e;
     if ((long)C * F == 0) return 0;
-    return arm<false>(wave, options)(coefs, pack, nullptr, nullptr, lay, nl,
-                                     C, F, nsamp, dw, WREF, threads, tile,
-                                     cs, smem, czr, czi, crr, cri, stream);
+    return arm<float, false>(wave, options)(
+        coefs, pack, nullptr, nullptr, lay, nl, C, F, nsamp, dw, (float)WREF,
+        threads, tile, cs, smem, czr, czi, crr, cri, stream);
+}
+
+// K3 in double: the same kernel at the scalar type double
+extern "C" int bh_resp_f64(const double *coefs, const double *pack,
+                           PackLayout lay, int nl, int C, int F, int nsamp,
+                           int wave, int options, double dw, int threads,
+                           int tile, int cs, int smem, double *czr,
+                           double *czi, double *crr, double *cri,
+                           cudaStream_t stream) {
+    if (wave != 0 && wave != 1) return (int)cudaErrorInvalidValue;
+    if (options < 0 || options > 3) return (int)cudaErrorInvalidValue;
+    if (int e = check_geometry(nl, threads, tile, cs, smem, 3, 8)) return e;
+    if ((long)C * F == 0) return 0;
+    return arm<double, false>(wave, options)(
+        coefs, pack, nullptr, nullptr, lay, nl, C, F, nsamp, dw, WREF,
+        threads, tile, cs, smem, czr, czi, crr, cri, stream);
 }
 
 extern "C" int bh_resp_q(const float *coefs, const float *pack,
@@ -431,9 +478,10 @@ extern "C" int bh_resp_q(const float *coefs, const float *pack,
                          float *crr, float *cri, cudaStream_t stream) {
     if (wave != 0 && wave != 1) return (int)cudaErrorInvalidValue;
     if (options < 0 || options > 3) return (int)cudaErrorInvalidValue;
-    if (int e = check_geometry(nl, threads, tile, cs, smem, 7)) return e;
+    if (int e = check_geometry(nl, threads, tile, cs, smem, 7, 4)) return e;
     if ((long)C * F == 0) return 0;
-    return arm<true>(wave, options)(coefs, pack, qp, qs, lay, nl, C, F,
-                                    nsamp, dw, wref, threads, tile, cs, smem,
-                                    czr, czi, crr, cri, stream);
+    return arm<float, true>(wave, options)(coefs, pack, qp, qs, lay, nl, C,
+                                           F, nsamp, dw, wref, threads, tile,
+                                           cs, smem, czr, czi, crr, cri,
+                                           stream);
 }

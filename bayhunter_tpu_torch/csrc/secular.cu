@@ -63,22 +63,23 @@ constexpr int SECULAR_MAX_THREADS = 256;  // ops/swd.py MAX_THREADS
 __host__ __device__ int rayleigh_floats(int nl, int R) { return 4 * nl + R + 3 * R * nl; }
 __host__ __device__ int love_floats(int nl, int R) { return 4 * nl + R + R * nl; }
 
-template <int IWAVE>
+template <class T, int IWAVE>
 __global__ void __launch_bounds__(SECULAR_MAX_THREADS)
-secular_kernel(const float *__restrict__ c, int sc_c, int sc_r, int sc_k,
-               const float *__restrict__ omega, int so_c, int so_r,
-               const float *__restrict__ d, const float *__restrict__ a,
-               const float *__restrict__ b, const float *__restrict__ rho,
+secular_kernel(const T *__restrict__ c, int sc_c, int sc_r, int sc_k,
+               const T *__restrict__ omega, int so_c, int so_r,
+               const T *__restrict__ d, const T *__restrict__ a,
+               const T *__restrict__ b, const T *__restrict__ rho,
                int nl, int C, int R, int K, int tile,
-               float *__restrict__ out) {
+               T *__restrict__ out) {
     constexpr int NINV = IWAVE == 2 ? 3 : 1;
-    extern __shared__ float smem[];
+    extern __shared__ double smem_d[];
+    T *smem = reinterpret_cast<T *>(smem_d);
     const int F = IWAVE == 2 ? rayleigh_floats(nl, R) : love_floats(nl, R);
-    const int T = blockDim.x;
+    const int NT = blockDim.x;
     const int tid = threadIdx.x;
     const int lane = tid & 31;
     const int warp = tid >> 5;
-    const int nw = T >> 5;
+    const int nw = NT >> 5;
     const int c_base = blockIdx.x * tile;
     const int tc = min(tile, C - c_base);
     int *s_top = (int *)(smem + tile * F);
@@ -87,16 +88,16 @@ secular_kernel(const float *__restrict__ c, int sc_c, int sc_r, int sc_k,
     const int hs = nl - 1;
 
     // the tile's layer rows and angular frequencies
-    for (int i = tid; i < tc * nl; i += T) {
+    for (int i = tid; i < tc * nl; i += NT) {
         const int cc = i / nl, l = i - cc * nl;
         const size_t g = (size_t)c_base * nl + i;
-        float *row = smem + cc * F;
+        T *row = smem + cc * F;
         row[l] = __ldg(d + g);
         if constexpr (IWAVE == 2) row[nl + l] = __ldg(a + g);
         row[2 * nl + l] = __ldg(b + g);
         row[3 * nl + l] = __ldg(rho + g);
     }
-    for (int i = tid; i < tc * R; i += T) {
+    for (int i = tid; i < tc * R; i += NT) {
         const int cc = i / R, r = i - cc * R;
         smem[cc * F + OM + r] = __ldg(omega + (size_t)(c_base + cc) * so_c
                                       + (size_t)r * so_r);
@@ -106,12 +107,12 @@ secular_kernel(const float *__restrict__ c, int sc_c, int sc_r, int sc_k,
     // each chain's top, the deepest slot 0..nl-2 with d > 0 (-1 for a
     // pure halfspace), by one warp's vote
     for (int cc = warp; cc < tc; cc += nw) {
-        const float *row = smem + cc * F;
+        const T *row = smem + cc * F;
         int top = -1;
         for (int l0 = 0; l0 < nl - 1; l0 += 32) {
             const int l = l0 + lane;
             const unsigned v = __ballot_sync(0xffffffffu,
-                                             l < nl - 1 && row[l] > 0.0f);
+                                             l < nl - 1 && row[l] > T(0));
             if (v) top = l0 + 31 - __clz(v);
         }
         if (lane == 0) s_top[cc] = top;
@@ -121,26 +122,26 @@ secular_kernel(const float *__restrict__ c, int sc_c, int sc_r, int sc_k,
     // the invariant terms of slots 0..max(top, 0) (slot 0's xka closes
     // Rayleigh's water clause) and of the halfspace, slot-major so that
     // a warp skips the unused slots together
-    for (int i = tid; i < nl * tc * R; i += T) {
+    for (int i = tid; i < nl * tc * R; i += NT) {
         const int l = i / (tc * R);
         const int j = i - l * tc * R;
         const int cc = j / R, r = j - cc * R;
         if (l > max(s_top[cc], 0) && l != hs) continue;
-        float *row = smem + cc * F;
-        float *inv = row + INV;
-        const float om = fmaxf(row[OM + r], 1.0e-4f);
+        T *row = smem + cc * F;
+        T *inv = row + INV;
+        const T om = mmax(row[OM + r], T(1.0e-4));
         if constexpr (IWAVE == 2) {
-            const dunkin_inv v = dltar4_invariants(om, row[nl + l],
-                                                   row[2 * nl + l]);
+            const dunkin_inv_t<T> v = dltar4_invariants(om, row[nl + l],
+                                                        row[2 * nl + l]);
             inv[(l * NINV + 0) * R + r] = v.xka;
             inv[(l * NINV + 1) * R + r] = v.xkb;
             inv[(l * NINV + 2) * R + r] = v.gammk;
         } else if (l == hs) {
-            const float b_hs = row[2 * nl + l];
+            const T b_hs = row[2 * nl + l];
             inv[l * R + r] = om / b_hs;
-            if (r == 0) row[nl + l] = 1.0f / (b_hs * b_hs);
+            if (r == 0) row[nl + l] = T(1) / (b_hs * b_hs);
         } else {
-            const float b_safe = love_b_safe(row[2 * nl + l]);
+            const T b_safe = love_b_safe(row[2 * nl + l]);
             inv[l * R + r] = om / b_safe;
             if (r == 0) row[nl + l] = love_xmu(row[3 * nl + l], b_safe);
         }
@@ -157,29 +158,30 @@ secular_kernel(const float *__restrict__ c, int sc_c, int sc_r, int sc_k,
         if (e >= E) continue;
         const int r = e / K, k = e - r * K;
         const int cg = c_base + cc;
-        const float *row = smem + cc * F;
-        const float *inv = row + INV;
-        const float wvno = row[OM + r]
+        const T *row = smem + cc * F;
+        const T *inv = row + INV;
+        const T wvno = row[OM + r]
             / __ldg(c + (size_t)cg * sc_c + (size_t)r * sc_r
                     + (size_t)k * sc_k);
         const int top = s_top[cc];
-        const int lstop = row[2 * nl] <= 0.0f ? 1 : 0;   // water on top
-        float f;
+        const int lstop = row[2 * nl] <= T(0) ? 1 : 0;   // water on top
+        T f;
         if constexpr (IWAVE == 1) {
-            evec2 e2 = dltar1_halfspace_at(wvno, inv[hs * R + r],
-                                           row[3 * nl + hs], row[nl + hs]);
+            evec2_t<T> e2 = dltar1_halfspace_at(wvno, inv[hs * R + r],
+                                                row[3 * nl + hs],
+                                                row[nl + hs]);
             for (int l = top; l >= lstop; --l)
                 e2 = dltar1_layer_at(e2, wvno, row[l], inv[l * R + r],
                                      row[nl + l]);
             f = e2.e1;
         } else {
-            const float wvno2 = wvno * wvno;
-            dunkin_inv v;
+            const T wvno2 = wvno * wvno;
+            dunkin_inv_t<T> v;
             v.xka = inv[(hs * NINV + 0) * R + r];
             v.xkb = inv[(hs * NINV + 1) * R + r];
             v.gammk = inv[(hs * NINV + 2) * R + r];
-            evec ev = dltar4_halfspace_at(wvno, wvno2, v,
-                                          row[3 * nl + hs]);
+            evec_t<T> ev = dltar4_halfspace_at(wvno, wvno2, v,
+                                               row[3 * nl + hs]);
             for (int l = top; l >= lstop; --l)
                 ev = dltar4_layer_at(ev, wvno, wvno2, row[l],
                                      row[3 * nl + l],
@@ -194,45 +196,44 @@ secular_kernel(const float *__restrict__ c, int sc_c, int sc_r, int sc_k,
 }
 
 // a launch above 48 KB of shared memory opts in to more
-template <int IWAVE>
+template <class T, int IWAVE>
 cudaError_t opt_in(int smem) {
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
-            secular_kernel<IWAVE>,
+            secular_kernel<T, IWAVE>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (e != cudaSuccess) return e;
     }
     return cudaSuccess;
 }
 
-template <int IWAVE>
-int launch(const float *c, int sc_c, int sc_r, int sc_k, const float *omega,
-           int so_c, int so_r, const float *d, const float *a,
-           const float *b, const float *rho, int nl, int C, int R, int K,
-           int threads, int tile, int smem, float *out,
-           cudaStream_t stream) {
+template <class T, int IWAVE>
+int launch(const T *c, int sc_c, int sc_r, int sc_k, const T *omega,
+           int so_c, int so_r, const T *d, const T *a, const T *b,
+           const T *rho, int nl, int C, int R, int K, int threads, int tile,
+           int smem, T *out, cudaStream_t stream) {
     const long floats = IWAVE == 2 ? rayleigh_floats(nl, R)
                                    : love_floats(nl, R);
     if (threads < 32 || threads > SECULAR_MAX_THREADS || threads % 32 != 0
         || tile < 1 || nl < 2 || R < 1 || K < 1
-        || smem < 4 * (long)tile * (floats + 1))
+        || smem < (long)tile * (sizeof(T) * floats + 4))
         return (int)cudaErrorInvalidConfiguration;
     if (C == 0) return 0;
-    cudaError_t e = opt_in<IWAVE>(smem);
+    cudaError_t e = opt_in<T, IWAVE>(smem);
     if (e != cudaSuccess) return (int)e;
     int blocks = (C + tile - 1) / tile;
-    secular_kernel<IWAVE><<<blocks, threads, smem, stream>>>(
+    secular_kernel<T, IWAVE><<<blocks, threads, smem, stream>>>(
         c, sc_c, sc_r, sc_k, omega, so_c, so_r, d, a, b, rho, nl, C, R, K,
         tile, out);
     return (int)cudaGetLastError();
 }
 
-template <int IWAVE>
+template <class T, int IWAVE>
 int occupancy(int threads, int smem, int *blocks) {
-    cudaError_t e = opt_in<IWAVE>(smem);
+    cudaError_t e = opt_in<T, IWAVE>(smem);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, secular_kernel<IWAVE>, threads, smem);
+        blocks, secular_kernel<T, IWAVE>, threads, smem);
 }
 
 }  // namespace
@@ -245,8 +246,9 @@ extern "C" int bh_secular4(const float *c, int sc_c, int sc_r, int sc_k,
                            const float *rho, int nl, int C, int R, int K,
                            int threads, int tile, int smem, float *out,
                            cudaStream_t stream) {
-    return launch<2>(c, sc_c, sc_r, sc_k, omega, so_c, so_r, d, a, b, rho,
-                     nl, C, R, K, threads, tile, smem, out, stream);
+    return launch<float, 2>(c, sc_c, sc_r, sc_k, omega, so_c, so_r, d, a, b,
+                            rho, nl, C, R, K, threads, tile, smem, out,
+                            stream);
 }
 
 // K5: Love (no P velocities)
@@ -255,8 +257,32 @@ extern "C" int bh_secular1(const float *c, int sc_c, int sc_r, int sc_k,
                            const float *d, const float *b, const float *rho,
                            int nl, int C, int R, int K, int threads, int tile,
                            int smem, float *out, cudaStream_t stream) {
-    return launch<1>(c, sc_c, sc_r, sc_k, omega, so_c, so_r, d, nullptr, b,
-                     rho, nl, C, R, K, threads, tile, smem, out, stream);
+    return launch<float, 1>(c, sc_c, sc_r, sc_k, omega, so_c, so_r, d,
+                            nullptr, b, rho, nl, C, R, K, threads, tile, smem,
+                            out, stream);
+}
+
+// K4 and K5 in double: the same kernel at the scalar type double
+extern "C" int bh_secular4_f64(const double *c, int sc_c, int sc_r, int sc_k,
+                               const double *omega, int so_c, int so_r,
+                               const double *d, const double *a,
+                               const double *b, const double *rho, int nl,
+                               int C, int R, int K, int threads, int tile,
+                               int smem, double *out, cudaStream_t stream) {
+    return launch<double, 2>(c, sc_c, sc_r, sc_k, omega, so_c, so_r, d, a, b,
+                             rho, nl, C, R, K, threads, tile, smem, out,
+                             stream);
+}
+
+extern "C" int bh_secular1_f64(const double *c, int sc_c, int sc_r, int sc_k,
+                               const double *omega, int so_c, int so_r,
+                               const double *d, const double *b,
+                               const double *rho, int nl, int C, int R,
+                               int K, int threads, int tile, int smem,
+                               double *out, cudaStream_t stream) {
+    return launch<double, 1>(c, sc_c, sc_r, sc_k, omega, so_c, so_r, d,
+                             nullptr, b, rho, nl, C, R, K, threads, tile,
+                             smem, out, stream);
 }
 
 // blocks of K4 (iwave 2) or K5 (iwave 1) that one SM holds at once at
@@ -264,6 +290,6 @@ extern "C" int bh_secular1(const float *c, int sc_c, int sc_r, int sc_k,
 // calculator: registers, shared memory, block limits)
 extern "C" int bh_secular_occupancy(int iwave, int threads, int smem,
                                     int *blocks) {
-    return iwave == 2 ? occupancy<2>(threads, smem, blocks)
-                      : occupancy<1>(threads, smem, blocks);
+    return iwave == 2 ? occupancy<float, 2>(threads, smem, blocks)
+                      : occupancy<float, 1>(threads, smem, blocks);
 }

@@ -110,12 +110,13 @@ def pin_sampler(device):
 
 def _with_models(sampler, states, vs, z, n, **fields):
     """``states`` holding the (C, NL) models ``vs``, ``z``, ``n``,
-    evaluated cold (K4, K6, K3 at all lanes)."""
-    dev = states.n.device
-    vs, z = (torch.tensor(np.asarray(x, np.float32), device=dev)
+    evaluated cold (K4, K6, K3 at all lanes), at the states' floating
+    type."""
+    dev, dt = states.n.device, states.vs.dtype
+    vs, z = (torch.tensor(np.asarray(x, np.float32), device=dev).to(dt)
              for x in (vs, z))
     n = torch.tensor(np.asarray(n, np.int32), device=dev)
-    fields = {k: torch.tensor(np.asarray(v, np.float32), device=dev)
+    fields = {k: torch.tensor(np.asarray(v, np.float32), device=dev).to(dt)
               for k, v in fields.items()}
     vpvs = fields.get('vpvs', states.vpvs)
     noise = fields.get('noise', states.noise)

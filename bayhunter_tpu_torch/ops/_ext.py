@@ -39,6 +39,7 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 
 
 class PackLayout(ctypes.Structure):
@@ -114,6 +115,16 @@ SIGNATURES = {
     # tile, smem (prep.geometry) | out | stream
     'bh_rf_prep': [_P, _P, _P, _P, _I, _I, _F, _I, _I, PackLayout, _I, _I,
                    _I, _P, _P],
+    # the float64 instances of K3, K4, K5 and K6: their float
+    # signatures with double scalars
+    'bh_resp_f64': [_P, _P, PackLayout, _I, _I, _I, _I, _I, _I, _D, _I, _I,
+                    _I, _I, _P, _P, _P, _P, _P],
+    'bh_secular4_f64': [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I,
+                        _I, _I, _I, _I, _I, _P, _P],
+    'bh_secular1_f64': [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I,
+                        _I, _I, _I, _I, _P, _P],
+    'bh_rf_prep_f64': [_P, _P, _P, _P, _I, _I, _D, _I, _I, PackLayout, _I,
+                       _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()

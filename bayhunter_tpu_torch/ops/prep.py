@@ -106,16 +106,17 @@ def rf_items(nl, tc, off):
 
 
 @functools.lru_cache(maxsize=64)
-def geometry(C, nl, n_rf, model=True, sph=False):
+def geometry(C, nl, n_rf, model=True, sph=False, elem=4):
     """K1's (``model``; ``sph`` with a spherical set) or K6's launch
     geometry for C chains of nl layer slots and ``n_rf`` RF targets
-    (K6: 1): tiles of 32 chains where that gives at least two blocks per
-    SM, else of 16 (a 2,048-chain cold chunk: 128 blocks), and enough
-    threads for a tile's items up to ``MAX_THREADS``."""
+    (K6: 1), ``elem`` the bytes of the scalar type (8 for K6's float64
+    instance): tiles of 32 chains where that gives at least two blocks
+    per SM, else of 16 (a 2,048-chain cold chunk: 128 blocks), and
+    enough threads for a tile's items up to ``MAX_THREADS``."""
     floats = tile_floats(nl, model, sph)
     tile = next((t for t in TILES if -(-C // t) >= 2 * _lanes.SMS
-                 and 4 * floats * t <= _lanes.SMEM_MAX), TILES[-1])
-    smem = 4 * floats * tile
+                 and elem * floats * t <= _lanes.SMEM_MAX), TILES[-1])
+    smem = elem * floats * tile
     if smem > _lanes.SMEM_MAX:
         raise ValueError('%s: %d layer slots need %d bytes of shared '
                          'memory, above %d' % ('K1' if model else 'K6', nl,
@@ -455,31 +456,40 @@ def rf_operands(h, vp, vs, rho, p, wave_type=_rf.P_WAVE, flattening=True):
     flattening (unless ``flattening`` is False: the raw layers), the
     ((NL-1)*32, C) interface tables and the per-chain pack for
     incidence ``wave_type`` at slowness ``p`` (s/km), row views of one
-    output buffer.  CPU tensors run the plain twin; CUDA tensors launch
-    K6 (its flattened or its unflattened arm)."""
+    output buffer at the planes' dtype.  CPU tensors run the plain twin;
+    CUDA tensors launch K6 (its flattened or its unflattened arm), its
+    float32 or its float64 instance by the planes' dtype."""
     if h.device.type == 'cpu':
         return rf_operands_plain(h, vp, vs, rho, p, wave_type, flattening)
     dev = h.device
     nl, C = h.shape
-    f32 = torch.float32
+    dt = h.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError('h has dtype %s, expected float32 or float64' % dt)
+    f64 = dt == torch.float64
     for name, x in (('h', h), ('vp', vp), ('vs', vs), ('rho', rho)):
-        _ext.require(x, name, dev, f32, (nl, C))
+        _ext.require(x, name, dev, dt, (nl, C))
     off, layout = _pack_layout(nl)
-    geo = geometry(C, nl, 1, False)
+    geo = geometry(C, nl, 1, False, elem=8 if f64 else 4)
     ncoef = (nl - 1) * 32
-    out = torch.empty((ncoef + off['rows'], C), dtype=f32, device=dev)
+    out = torch.empty((ncoef + off['rows'], C), dtype=dt, device=dev)
     lib = _ext.load()
+    entry = lib.bh_rf_prep_f64 if f64 else lib.bh_rf_prep
     with torch.cuda.device(dev):
-        rc = lib.bh_rf_prep(
+        rc = entry(
             _ext.ptr(h), _ext.ptr(vp), _ext.ptr(vs), _ext.ptr(rho), nl, C,
             float(p), _rf.wave_index(wave_type), int(bool(flattening)),
             layout, geo.threads, geo.tile, geo.smem, _ext.ptr(out),
             _ext.stream(dev))
     _ext.check(rc, 'rf_prep')
-    rf_operands.launches += 1
-    rf_operands.unflat_launches += not flattening
+    if f64:
+        rf_operands.f64_launches += 1
+    else:
+        rf_operands.launches += 1
+        rf_operands.unflat_launches += not flattening
     return out.split((ncoef, off['rows']))
 
 
-rf_operands.launches = 0          # every launch
-rf_operands.unflat_launches = 0   # launches of the unflattened arm
+rf_operands.launches = 0          # every float32 launch
+rf_operands.unflat_launches = 0   # float32 launches of the unflattened arm
+rf_operands.f64_launches = 0      # launches of the float64 instance

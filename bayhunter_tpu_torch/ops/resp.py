@@ -56,9 +56,10 @@ def record_floats(nl, q):
 
 
 @functools.lru_cache(maxsize=64)
-def geometry(C, F, nl, q=False):
+def geometry(C, F, nl, q=False, elem=4):
     """K3's (``q`` False) or K3r's launch geometry for C chains of F
-    frequency lanes and nl layer slots: among tiles of at most
+    frequency lanes and nl layer slots, ``elem`` the bytes of the scalar
+    type (8 for K3's float64 instances): among tiles of at most
     ``MAX_TILE`` whole chains (more where F is small; at least two blocks
     per SM where C allows) and blocks of 128-256 threads, the pair that
     wastes the fewest thread slots on a tile's last, partial warp, then
@@ -68,7 +69,7 @@ def geometry(C, F, nl, q=False):
                           -(-C // (2 * _lanes.SMS))))
     best = None
     for tile in range(1, max_tile + 1):
-        smem = 4 * (tile * cs + 4)                # + the staged-row count
+        smem = elem * tile * cs + 16              # + the staged-row count
         if smem > _lanes.SMEM_MAX and tile > 1:
             break
         warps = -(-tile * F // _lanes.WARP)
@@ -111,19 +112,19 @@ def lane_work(C, F, nl, depth, q=False):
                                 np.repeat(depth + 1, F))
 
 
-def _outputs(coefs, pack, cut, nsamp):
+def _outputs(coefs, pack, cut, nsamp, dtype=torch.float32):
     """Checked shapes (nl, C, pack offsets) and the four (C, cut)
-    output planes of a kernel launch."""
+    output planes of a kernel launch at ``dtype``."""
     dev = coefs.device
     C = coefs.shape[1]
     nl = coefs.shape[0] // 32 + 1
     off = _rf.pack_offsets(nl)
-    _ext.require(coefs, 'coefs', dev, torch.float32, ((nl - 1) * 32, C))
-    _ext.require(pack, 'pack', dev, torch.float32, (off['rows'], C))
+    _ext.require(coefs, 'coefs', dev, dtype, ((nl - 1) * 32, C))
+    _ext.require(pack, 'pack', dev, dtype, (off['rows'], C))
     if not 0 < cut <= nsamp // 2 + 1:
         raise ValueError('cut %d outside 1..%d' % (cut, nsamp // 2 + 1))
-    return nl, C, off, tuple(torch.empty((C, cut), dtype=torch.float32,
-                                         device=dev) for _ in range(4))
+    return nl, C, off, tuple(torch.empty((C, cut), dtype=dtype, device=dev)
+                             for _ in range(4))
 
 
 def resp_plain(coefs, pack, cut, nsamp, fsamp, wave_type=_rf.P_WAVE,
@@ -134,38 +135,51 @@ def resp_plain(coefs, pack, cut, nsamp, fsamp, wave_type=_rf.P_WAVE,
 
 
 def resp(coefs, pack, cut, nsamp, fsamp, wave_type=_rf.P_WAVE, options=0):
-    """(cz re, cz im, cr re, cr im), each (C, cut) float32, of the
-    operands ``coefs`` ((NL-1)*32, C) and ``pack`` (rows, C) for
-    incidence ``wave_type`` under uniform Q, or with the ``options``
-    bitmask (``rf.options_index``).  CPU tensors run the plain twin;
-    CUDA tensors launch K3."""
+    """(cz re, cz im, cr re, cr im), each (C, cut) at the operands'
+    dtype, of the operands ``coefs`` ((NL-1)*32, C) and ``pack`` (rows,
+    C) for incidence ``wave_type`` under uniform Q, or with the
+    ``options`` bitmask (``rf.options_index``).  CPU tensors run the
+    plain twin; CUDA tensors launch K3, its float32 or its float64
+    instance by the operands' dtype (``launches``, ``sv_launches`` and
+    ``option_launches`` count the former, ``f64_launches`` and
+    ``f64_sv_launches`` the latter)."""
     if coefs.device.type == 'cpu':
         return resp_plain(coefs, pack, cut, nsamp, fsamp, wave_type,
                           options)
     wave = _rf.wave_index(wave_type)
     opt = _rf.options_index(options)
     dev = coefs.device
-    nl, C, off, outs = _outputs(coefs, pack, cut, nsamp)
-    geo = geometry(C, int(cut), nl)
+    dt = coefs.dtype
+    f64 = dt == torch.float64
+    nl, C, off, outs = _outputs(coefs, pack, cut, nsamp,
+                                torch.float64 if f64 else torch.float32)
+    geo = geometry(C, int(cut), nl, elem=8 if f64 else 4)
     lib = _ext.load()
+    entry = lib.bh_resp_f64 if f64 else lib.bh_resp
     with torch.cuda.device(dev):
-        rc = lib.bh_resp(
+        rc = entry(
             _ext.ptr(coefs), _ext.ptr(pack), _ext.pack_layout(off), nl, C,
             int(cut), int(nsamp), wave, opt,
             float(2.0 * np.pi * fsamp / nsamp), geo.threads, geo.tile,
             geo.cs, geo.smem, *(_ext.ptr(o) for o in outs),
             _ext.stream(dev))
     _ext.check(rc, 'resp')
+    if f64:
+        resp.f64_launches += 1
+        resp.f64_sv_launches += wave
+        return outs
     resp.launches += 1
     resp.sv_launches += wave
     resp.option_launches[wave][opt] += 1
     return outs
 
 
-resp.launches = 0         # every launch
-resp.sv_launches = 0      # launches for SV incidence
-# launches by incidence (P, SV) and options bitmask
+resp.launches = 0         # every float32 launch
+resp.sv_launches = 0      # float32 launches for SV incidence
+# float32 launches by incidence (P, SV) and options bitmask
 resp.option_launches = [[0] * 4, [0] * 4]
+resp.f64_launches = 0     # every launch of the float64 instances
+resp.f64_sv_launches = 0  # float64 launches for SV incidence
 
 
 def resp_q_plain(coefs, pack, qp, qs, cut, nsamp, fsamp,

@@ -773,9 +773,10 @@ def synrf_batch(h, vp, vs, rho, qp, qs, p_sdeg, gauss_a, nsamp, fsamp,
     the Gauss-cut frequencies, then the deconvolution and the folded
     inverse DFT, as ``bayhunter_tpu/ops/rf.py`` ``synrf_batch`` does.
     Arrays and scalars go to ``device`` (default: CUDA; tensors stay
-    on their own device unless ``device`` is given) as float32; CPU
-    tensors run the kernels' plain twins, in float64 for float64
-    tensors."""
+    on their own device unless ``device`` is given) as float32, or as
+    float64 for float64 tensors; CPU tensors run the kernels' plain
+    twins, CUDA tensors the kernels at that type (K6 and K3 have
+    float64 instances; K3r runs float32 only)."""
     rotated, series = _rotated_spectra(
         h, vp, vs, rho, qp, qs, p_sdeg, gauss_a, nsamp, fsamp, tshift, nsv,
         poisson, wave_type, fref, flattening, device)
@@ -802,8 +803,8 @@ def _rotated_spectra(h, vp, vs, rho, qp, qs, p_sdeg, gauss_a, nsamp, fsamp,
         dev = torch.device(device)
     else:
         dev = h.device if torch.is_tensor(h) else torch.device('cuda')
-    dt = (torch.float64 if dev.type == 'cpu' and torch.is_tensor(h)
-          and h.dtype == torch.float64 else torch.float32)
+    dt = (torch.float64 if torch.is_tensor(h) and h.dtype == torch.float64
+          else torch.float32)
     h_t, vp_t, vs_t, rho_t = (_on_device(x, dev, dtype=dt).T.contiguous()
                               for x in (h, vp, vs, rho))
     nl, C = h_t.shape

@@ -294,16 +294,17 @@ def chain_floats(nl, R, iwave):
 
 
 @functools.lru_cache(maxsize=64)
-def geometry(C, R, K, nl, iwave):
+def geometry(C, R, K, nl, iwave, elem=4):
     """K4's or K5's launch geometry for C chains of R periods, K
-    candidates per period and nl layer slots.  A chain's R * K
+    candidates per period and nl layer slots, ``elem`` the bytes of the
+    scalar type (4 float32, 8 the float64 instances).  A chain's R * K
     candidates take W = ceil(R K / 32) warp-slots; a tile of
     ``8 / gcd(W, 8)`` chains (at most C) makes the tile's warp-slots a
     whole number of rounds of the block's 8 warps, halved while the
     tile's shared memory would not fit."""
     warps = MAX_THREADS // _lanes.WARP
     W = -(-R * K // _lanes.WARP)
-    per_chain = 4 * (chain_floats(nl, R, iwave) + 1)      # + its top
+    per_chain = elem * chain_floats(nl, R, iwave) + 4      # + its top
     if per_chain > _lanes.SMEM_MAX:
         raise ValueError('K%d: %d periods of %d layer slots need %d bytes '
                          'of shared memory a chain, above %d'
@@ -351,13 +352,23 @@ def _broadcast_shape(a, b):
     return tuple(out)
 
 
+# the kernels' scalar types: C entry suffix and element bytes
+KERNEL_DTYPES = {torch.float32: ('', 4), torch.float64: ('_f64', 8)}
+
+
 def _launch_secular(name, c, omega, layers, iwave):
     """(C, R) or (C, R, K) values of K4 (``bh_secular4``) or K5
     (``bh_secular1``) on CUDA tensors at the wavenumbers omega / c;
-    ``layers`` the (C, NL) arrays the kernel takes.  Broadcast inputs
-    go to the kernel with their strides, uncopied."""
+    ``layers`` the (C, NL) arrays the kernel takes.  float32 inputs run
+    the float instance, float64 inputs the double one (entry
+    ``name + '_f64'``); every tensor must have the layers' dtype.
+    Broadcast inputs go to the kernel with their strides, uncopied."""
     dev = layers[0].device
-    f32 = torch.float32
+    dt = layers[0].dtype
+    if dt not in KERNEL_DTYPES:
+        raise TypeError('layer array 0 has dtype %s, expected float32 or '
+                        'float64' % dt)
+    suffix, elem = KERNEL_DTYPES[dt]
     C, nl = layers[0].shape
     shape = _broadcast_shape(c.shape, omega.shape)
     if len(shape) not in (2, 3) or shape[0] != C:
@@ -365,10 +376,10 @@ def _launch_secular(name, c, omega, layers, iwave):
                          '(C, R) or (C, R, K)' % (shape, C))
     R, K = shape[1], shape[2] if len(shape) == 3 else 1
     cx, ox = c.expand(shape), omega.expand(shape)
-    _ext.require(cx, 'c', dev, f32, shape, contiguous=False)
-    _ext.require(ox, 'omega', dev, f32, shape, contiguous=False)
+    _ext.require(cx, 'c', dev, dt, shape, contiguous=False)
+    _ext.require(ox, 'omega', dev, dt, shape, contiguous=False)
     for i, x in enumerate(layers):
-        _ext.require(x, 'layer array %d' % i, dev, f32, (C, nl))
+        _ext.require(x, 'layer array %d' % i, dev, dt, (C, nl))
     sc = cx.stride() + (0,) * (3 - len(shape))
     so = ox.stride() + (0,) * (3 - len(shape))
     if so[2] != 0 and K > 1:
@@ -376,15 +387,15 @@ def _launch_secular(name, c, omega, layers, iwave):
     if C * R * K >= 2 ** 31:
         raise ValueError('%d candidates: above the kernels\' int range'
                          % (C * R * K))
-    out = torch.empty(shape, dtype=f32, device=dev)
-    geo = geometry(C, R, K, nl, iwave)
+    out = torch.empty(shape, dtype=dt, device=dev)
+    geo = geometry(C, R, K, nl, iwave, elem)
     lib = _ext.load()
     with torch.cuda.device(dev):
-        rc = getattr(lib, name)(
+        rc = getattr(lib, name + suffix)(
             _ext.ptr(c), *sc, _ext.ptr(omega), *so[:2],
             *(_ext.ptr(x) for x in layers), nl, C, R, K, geo.threads,
             geo.tile, geo.smem, _ext.ptr(out), _ext.stream(dev))
-    _ext.check(rc, name)
+    _ext.check(rc, name + suffix)
     return out
 
 
@@ -393,11 +404,13 @@ def secular4(c, omega, d, a, b, rho):
     wavenumbers omega / c of candidate phase velocities ``c`` and
     angular frequencies ``omega``, (C, R) or (C, R, K) once broadcast
     (omega constant along K).  CPU tensors run the plain twin
-    :func:`dltar4`; CUDA tensors launch the kernel."""
+    :func:`dltar4`; CUDA tensors launch the kernel, its float32 or its
+    float64 instance by the layers' dtype (``f64_launches`` counts the
+    latter, ``launches`` the former)."""
     if c.device.type == 'cpu':
         return dltar4(omega / c, omega, d, a, b, rho)
     out = _launch_secular('bh_secular4', c, omega, (d, a, b, rho), 2)
-    secular4.launches += 1
+    _count(secular4, d)
     return out
 
 
@@ -408,12 +421,20 @@ def secular1(c, omega, d, b, rho):
     if c.device.type == 'cpu':
         return dltar1(omega / c, omega, d, b, rho)
     out = _launch_secular('bh_secular1', c, omega, (d, b, rho), 1)
-    secular1.launches += 1
+    _count(secular1, d)
     return out
 
 
-secular4.launches = 0
-secular1.launches = 0
+def _count(wrapper, x):
+    """One launch of ``wrapper``'s kernel at ``x``'s dtype."""
+    if x.dtype == torch.float64:
+        wrapper.f64_launches += 1
+    else:
+        wrapper.launches += 1
+
+
+secular4.launches = secular4.f64_launches = 0
+secular1.launches = secular1.f64_launches = 0
 
 
 def secular_at(c, omega, d, a, b, rho, iwave):
@@ -615,6 +636,107 @@ def _find_brackets_b(omega, cm, betmx, secular, mode, K, nblocks):
     return lo, found
 
 
+# points a ring block evaluates per lane at most (both sides): the trips
+# of a block double from 1 up to this
+RING_BLOCK_POINTS = 256
+
+
+def ring_brackets(omega, c_prev, cm, betmx, secular, K, max_trips):
+    """Bracket the sign change nearest to ``c_prev`` by expanding rings
+    of K grid points (step DDC) on each side: the pure expanding ring of
+    ``bayhunter_tpu/ops/swd.py`` ``_ring_brackets`` (``:427-516``), with
+    its trip semantics.  Trip t evaluates c_prev + t K DDC + k DDC and
+    c_prev - t K DDC - k DDC (k = 1..K); c_prev's sign seeds both sides;
+    a flip counts only at a point in range (right: <= betmx + DDC, left:
+    >= cm); the first trip with a flip on either side wins, within it
+    the nearer side, ties going up (right flip j -> [pt_j - DDC, pt_j],
+    left -> [pt_j, pt_j + DDC]); a lane is dead once the first points of
+    both sides of a trip leave the range; at most ``max_trips`` trips.
+
+    ``omega`` and ``c_prev`` (C, R), ``cm`` and ``betmx`` (C, 1);
+    ``secular(c, omega, rows)`` gives the values at the wavenumbers
+    omega / c of the chains ``rows`` (an index tensor, None for all).
+    Trips run in blocks, one ``secular`` call each (the first block trip
+    0 alone, then 2, 4, ... trips up to ``RING_BLOCK_POINTS`` points a
+    lane), on the chains with a lane neither found nor dead, with one
+    host sync a block; the earliest trip of a block with a flip gives
+    the bracket that trip-by-trip order gives.  Returns (lo, found),
+    each (C, R); an unfound lane's lo is cm."""
+    dtype, dev = omega.dtype, omega.device
+    C, R = omega.shape
+    dc = torch.tensor(DDC, dtype=dtype, device=dev)
+    ksteps = torch.arange(1, K + 1, dtype=dtype, device=dev) * dc
+    limit = betmx + dc
+    lo = cm.expand(C, R).clone()
+    found = torch.zeros((C, R), dtype=torch.bool, device=dev)
+    rows = None
+    sR = sL = None
+    t0, nb = 0, 1
+    max_block = max(1, RING_BLOCK_POINTS // (2 * K))
+    while t0 < max_trips:
+        nb = min(nb, max_trips - t0)
+
+        def sub(x):
+            return x if rows is None else x[rows]
+
+        cp, om, cm_r, lim = sub(c_prev), sub(omega), sub(cm), sub(limit)
+        n = cp.shape[0]
+        base = (torch.arange(t0, t0 + nb, device=dev) * K).to(dtype) * dc
+        ptsR = (cp[..., None, None] + base[:, None]) + ksteps  # (n,R,nb,K)
+        ptsL = (cp[..., None, None] - base[:, None]) - ksteps
+        pts = [ptsR.reshape(n, R, nb * K), ptsL.reshape(n, R, nb * K)]
+        if t0 == 0:
+            pts.insert(0, cp[..., None])
+        sg = secular(torch.cat(pts, dim=-1), om[..., None], rows) > 0
+        if t0 == 0:
+            sR = sL = sg[..., 0]
+            sg = sg[..., 1:]
+        sgR, sgL = sg[..., :nb * K], sg[..., nb * K:]
+        validR = ptsR <= lim[..., None, None]
+        validL = ptsL >= cm_r[..., None, None]
+        allR = torch.cat([sR[..., None], sgR], dim=-1)
+        allL = torch.cat([sL[..., None], sgL], dim=-1)
+        flipR = (allR[..., 1:] != allR[..., :-1]).reshape(n, R, nb, K) \
+            & validR
+        flipL = (allL[..., 1:] != allL[..., :-1]).reshape(n, R, nb, K) \
+            & validL
+        hasR, hasL = flipR.any(dim=-1), flipL.any(dim=-1)     # (n, R, nb)
+        jR = torch.argmax(flipR.to(torch.int8), dim=-1, keepdim=True)
+        jL = torch.argmax(flipL.to(torch.int8), dim=-1, keepdim=True)
+        loR = torch.gather(ptsR, -1, jR)[..., 0] - dc
+        loL = torch.gather(ptsL, -1, jL)[..., 0]
+        useL = hasL & (~hasR | (jL[..., 0] < jR[..., 0]))
+        lo_t = torch.where(useL, loL, loR)
+        hit_t = hasR | hasL
+        first = torch.argmax(hit_t.to(torch.int8), dim=-1, keepdim=True)
+        newly = hit_t.any(dim=-1) & ~sub(found)
+        lo_n = torch.where(newly, torch.gather(lo_t, -1, first)[..., 0],
+                           sub(lo))
+        found_n = sub(found) | newly
+        dead = (~validR[..., 0] & ~validL[..., 0]).any(dim=-1)
+        if rows is None:
+            lo, found = lo_n, found_n
+        else:
+            lo = lo.index_put((rows,), lo_n)
+            found = found.index_put((rows,), found_n)
+        sR, sL = sgR[..., -1], sgL[..., -1]
+        t0 += nb
+        nb = min(2 * nb, max_block)
+        keep = torch.nonzero(~(found_n | dead).all(dim=-1))[:, 0]
+        if keep.numel() == 0:                   # the block's one sync
+            break
+        rows = keep if rows is None else rows[keep]
+        sR, sL = sR[keep], sL[keep]
+    ring_brackets.calls += 1
+    ring_brackets.trips += t0
+    return lo, found
+
+
+# calls, and trips run (the blocks' trips summed over calls): host
+# counters that a caller reads to see how far the rings expanded
+ring_brackets.calls = ring_brackets.trips = 0
+
+
 def _ksection_refine(omega, lo, secular, KR, niter):
     """Narrow the (lo, lo + DDC) bracket by (KR+1)^niter, then one
     secant step on the final bracket's values, with the smaller-|f|
@@ -691,6 +813,44 @@ def surfdisp_roots_cold(h, vp, vs, rho, periods, iwave=2, mode=1, igr=0,
 
     lo, found = _find_brackets_b(omegas, cm, betmx, secular, mode, KBLOCK,
                                  NBLOCKS)
+    c, slope = _ksection_refine(omegas, lo, secular, KREFINE, niter)
+    slope = torch.where(found, slope, torch.zeros_like(slope))
+    cg, err = velocities(c, found, t, igr)
+    return cg, err, c, slope
+
+
+def surfdisp_roots_warm(h, vp, vs, rho, periods, c_prev, ring, iwave=2,
+                        mode=1, igr=0, iflsph=0):
+    """Warm solve of a row-major (C, NL) batch from the previous roots
+    ``c_prev`` (C, L): the JAX package's per-chain ``surfdisp_roots``
+    with ``c_prev`` (``bayhunter_tpu/ops/swd.py:1329-1342``) — the
+    flattening, the roots clipped to [cm, betmx], the pure expanding
+    ring of half-width ``ring`` (:func:`ring_brackets`, at most
+    (KBLOCK NBLOCKS) // ring trips), then the refinement
+    (:func:`_ksection_refine`, one pass for float32 phase solves, three
+    for group solves and float64), every secular evaluation through K4
+    or K5 at the layers' dtype.  ``mode`` is taken for the cold solve's
+    signature: the ring brackets the sign change nearest the previous
+    root.  Returns (cg, err, roots, slopes) as
+    :func:`surfdisp_roots_cold`."""
+    dtype = h.dtype
+    niter = 1 if dtype == torch.float32 and not igr else 3
+    if iflsph == 1:
+        h, vp, vs, rho = sphere_flatten(h, vp, vs, rho, iwave)
+    cm, betmx = lower_bound(vp, vs, dim=-1)
+    cm, betmx = cm[:, None], betmx[:, None]
+    t, lanes = lane_periods(periods, igr, h.device, dtype)
+    omegas = angular_frequencies(lanes, h.device, dtype).expand(
+        h.shape[0], -1)
+    cp = torch.minimum(torch.maximum(c_prev.to(dtype), cm), betmx)
+    layers = (h, vp, vs, rho)
+
+    def secular(c, omega, rows=None):
+        lay = layers if rows is None else tuple(x[rows] for x in layers)
+        return secular_at(c, omega, *lay, iwave)
+
+    trips = max(1, (KBLOCK * NBLOCKS) // ring)
+    lo, found = ring_brackets(omegas, cp, cm, betmx, secular, ring, trips)
     c, slope = _ksection_refine(omegas, lo, secular, KREFINE, niter)
     slope = torch.where(found, slope, torch.zeros_like(slope))
     cg, err = velocities(c, found, t, igr)

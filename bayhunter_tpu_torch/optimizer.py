@@ -76,8 +76,9 @@ class MCMC_Optimizer(object):
     """Joint McMC inversion over many parallel chains."""
 
     def __init__(self, targets, initparams=dict(), priors=dict(),
-                 random_seed=None, device=None, devices=None):
-        self._setup(targets, initparams, priors, random_seed, device,
+                 random_seed=None, dtype=torch.float32, device=None,
+                 devices=None):
+        self._setup(targets, initparams, priors, random_seed, dtype, device,
                     devices)
         self.savepath = op.join(self.initparams['savepath'], 'data')
         os.makedirs(self.savepath, exist_ok=True)
@@ -88,7 +89,8 @@ class MCMC_Optimizer(object):
 
     @classmethod
     def without_files(cls, targets, initparams=dict(), priors=dict(),
-                      random_seed=None, device=None, devices=None):
+                      random_seed=None, dtype=torch.float32, device=None,
+                      devices=None):
         """The sampler, its chains and the phase loop without the
         savepath and the config pickle: the single-chain front end
         (``sampler.chain.SingleChain``) runs its ``_init_states`` and
@@ -96,17 +98,20 @@ class MCMC_Optimizer(object):
         snapshots in ``snapshots[tag]`` (the layout of the ``.npy``
         files) instead of writing them, with no checkpoint."""
         self = cls.__new__(cls)
-        self._setup(targets, initparams, priors, random_seed, device,
+        self._setup(targets, initparams, priors, random_seed, dtype, device,
                     devices)
         self.savepath = None
         return self
 
-    def _setup(self, targets, initparams, priors, random_seed, device,
-               devices=None):
+    def _setup(self, targets, initparams, priors, random_seed, dtype,
+               device, devices=None):
         # devices: the split's devices, None for a run in this process
         # (self.device; a split keeps its gathered states on the CPU)
         self.device, self.devices = mesh.resolve_devices(
             device, devices, self.__class__.__name__)
+        # float32 runs take the batch path, float64 runs the per-chain
+        # ring path (bayhunter_tpu/optimizer.py:76-79 on a TPU)
+        self.dtype = dtype
         self.sock_addr = 'tcp://*:5556'
         self.rstate = np.random.RandomState(random_seed)
         self.seed = random_seed if random_seed is not None \
@@ -129,12 +134,12 @@ class MCMC_Optimizer(object):
 
         noiserefs = [t.noiseref for t in targets.targets]
         self.cfg = make_config(self.priors, self.initparams, noiserefs,
-                               nl=self.maxlayers)
+                               nl=self.maxlayers, dtype=dtype)
         # a split run's workers evaluate; this process keeps the sampler
         # for the move schedule alone
         self.eval_fn = None if self.devices else build_evaluator(
             targets, self.priors, self.initparams, self.maxlayers,
-            self.device)
+            self.device, dtype, use_batch_swd=dtype == torch.float32)
         self.sampler = Sampler(self.eval_fn, self.cfg, self.device)
 
         # parallel tempering: nchains posterior chains, each with
@@ -227,7 +232,7 @@ class MCMC_Optimizer(object):
         if not isinstance(states, mesh.Workers):
             return states
         return convert.state_from_numpy(self._host_state(states)[0],
-                                        self.device)
+                                        self.device, self.dtype)
 
     def _open_pool(self):
         """Start the workers of a split run, one per entry of
@@ -239,7 +244,8 @@ class MCMC_Optimizer(object):
             _ext.load()
         self._pool = mesh.Workers(
             self.devices, self.blocks, _worker_optimizer,
-            (self.targets, self.initparams, self.priors, self.seed))
+            (self.targets, self.initparams, self.priors, self.seed,
+             self.dtype))
         return self._pool
 
     def _close_pool(self, terminate=False):
@@ -279,7 +285,7 @@ class MCMC_Optimizer(object):
                         else self._perm.cpu().numpy())
 
     def _block_load(self, states, fields, gen_state, perm):
-        states = convert.state_from_numpy(fields, self.device)
+        states = convert.state_from_numpy(fields, self.device, self.dtype)
         self._gen = torch.Generator(device=self.device)
         self._gen.set_state(torch.from_numpy(gen_state))
         if perm is not None:
@@ -290,7 +296,7 @@ class MCMC_Optimizer(object):
         if self._rows is not None:
             betas = betas[self._rows.start:self._rows.stop]
         return dataclasses.replace(states, beta=torch.tensor(
-            betas.astype(np.float32), device=states.beta.device)), None
+            betas, dtype=states.beta.dtype, device=states.beta.device)), None
 
     def _block_resort(self, states):
         """Sort the block's rows by layer count (whole temperature
@@ -769,11 +775,12 @@ def write_chains(path, snaps, tag, first=0):
                     arr)
 
 
-def _worker_optimizer(device, rows, targets, initparams, priors, seed):
+def _worker_optimizer(device, rows, targets, initparams, priors, seed,
+                      dtype=torch.float32):
     """One worker of a split run: an optimizer without files on
-    ``device`` whose sampler runs ``rows`` of the batch
-    (``mesh.Workers``)."""
+    ``device`` at the parent's ``dtype`` whose sampler runs ``rows`` of
+    the batch (``mesh.Workers``)."""
     opt = MCMC_Optimizer.without_files(targets, initparams, priors, seed,
-                                       device=device)
+                                       dtype=dtype, device=device)
     opt.sampler.rows = opt._rows = rows
     return opt

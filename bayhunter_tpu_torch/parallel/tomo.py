@@ -21,6 +21,7 @@ import logging
 import time
 
 import numpy as np
+import torch
 
 from bayhunter_tpu_torch import Targets
 from bayhunter_tpu_torch import config as cfgio
@@ -52,6 +53,8 @@ class TomoInversion(object):
     ref : one of rdispph / rdispgr / ldispph / ldispgr
     chains_per_cell : chains allocated to every cell
     priors / initparams : reference-style dicts (defaults.ini filled in)
+    dtype : the chains' floating type: float32 (the batch path) or
+        float64 (the per-chain ring path, the kernels' double instances)
     device : a CUDA device unless given (``'cpu'`` runs the twins)
     devices : a list of devices, one worker each (``parallel/mesh.py``);
         with neither given, every visible CUDA device
@@ -59,7 +62,7 @@ class TomoInversion(object):
 
     def __init__(self, x, Y, ref='rdispph', chains_per_cell=32,
                  priors=None, initparams=None, random_seed=None,
-                 device=None, devices=None):
+                 dtype=torch.float32, device=None, devices=None):
         self.device, self.devices = mesh.resolve_devices(
             device, devices, 'TomoInversion')
         self.x = np.asarray(x, float)
@@ -78,7 +81,9 @@ class TomoInversion(object):
 
         self.ref = ref
         nl = int(self.priors['layers'][1]) + 1
-        self.cfg = make_config(self.priors, self.initparams, ['swd'], nl=nl)
+        self.dtype = dtype
+        self.cfg = make_config(self.priors, self.initparams, ['swd'], nl=nl,
+                               dtype=dtype)
         self.nchains = self.ncells * self.chains_per_cell
         self.seed = (random_seed if random_seed is not None
                      else np.random.RandomState().randint(2 ** 31))
@@ -89,8 +94,9 @@ class TomoInversion(object):
         if self.devices:
             self.blocks = mesh.chain_sharding(self.nchains, self.devices)
         else:
-            self.eval_fn = build_evaluator(self.joint, self.priors,
-                                           self.initparams, nl, self.device)
+            self.eval_fn = build_evaluator(
+                self.joint, self.priors, self.initparams, nl, self.device,
+                dtype, use_batch_swd=dtype == torch.float32)
             self.sampler = Sampler(self.eval_fn, self.cfg, self.device)
 
     def run(self, segment_iters=200, log_every=5):
@@ -108,7 +114,8 @@ class TomoInversion(object):
                 _ext.load()
             with mesh.Workers(self.devices, self.blocks, _worker_tomo, (
                     self.x, self.Y, self.ref, self.chains_per_cell,
-                    self.priors, self.initparams, self.seed)) as pool:
+                    self.priors, self.initparams, self.seed,
+                    self.dtype)) as pool:
                 states = self._run(pool, segment_iters, log_every)
             self.worker_reports, self.pool_stats = pool.reports, pool.stats()
             for rep, at_init in zip(pool.reports, self._launches_at_init):
@@ -156,7 +163,8 @@ class TomoInversion(object):
         if not split:
             return states
         return convert.state_from_numpy(
-            mesh.concat(states.call('_block_state')), self.device)
+            mesh.concat(states.call('_block_state')), self.device,
+            self.dtype)
 
     # the operations on one block of chains (all of them in this
     # process, a worker's rows in a split run): (states, ...) ->
@@ -219,10 +227,11 @@ class TomoInversion(object):
 
 
 def _worker_tomo(device, rows, x, Y, ref, chains_per_cell, priors,
-                 initparams, seed):
-    """One worker of a split run: the inversion on ``device`` whose
-    sampler runs ``rows`` of the batch (``mesh.Workers``)."""
+                 initparams, seed, dtype=torch.float32):
+    """One worker of a split run: the inversion on ``device`` at the
+    parent's ``dtype`` whose sampler runs ``rows`` of the batch
+    (``mesh.Workers``)."""
     tomo = TomoInversion(x, Y, ref, chains_per_cell, priors, initparams,
-                         seed, device=device)
+                         seed, dtype=dtype, device=device)
     tomo.sampler.rows = rows
     return tomo

@@ -21,7 +21,12 @@ noise-parameter index), ``normal``, ``uniform`` (birth depth),
 it from any other source.
 
 Model moves run on transposed (NL, C) planes, chains on the minor
-axis, as the kernels take them.  A sampler given a row block
+axis, as the kernels take them.  A step evaluates its proposal on the
+evaluator's batch path (``eval_full_batch_t``: K1, the capped K2 walk)
+or, for an evaluator without it (every float64 run, as the JAX
+package's runs off a TPU), on the per-chain ring path (``eval_full`` at
+the JAX ring widths ``RING``); the states are float32 or float64
+(``SamplerConfig.dtype``).  A sampler given a row block
 (``Sampler.rows``, a :class:`Rows`) runs rows ``start:stop`` of a
 ``total``-chain batch, as a worker of a split run does
 (``parallel/mesh.py``): it draws every random tensor at the full width
@@ -56,6 +61,10 @@ MOVE_DIM = 6
 PARIDX = (0, 1, 2, 2, 3, 4, 2)
 WARM = {MOVE_VS: _swd.WARM_VS, MOVE_Z: _swd.WARM_Z,
         MOVE_DIM: _swd.WARM_DIM, MOVE_VPVS: _swd.WARM_VPVS}
+# the per-chain ring path's ring half-widths by move, the JAX sampler's
+# _ring_width_for(move, newton=False) (bayhunter_tpu/sampler/chain.py:
+# 451-496): vs 16, z 8, vp/vs 8, birth/death 1
+RING = {MOVE_VS: 16, MOVE_Z: 8, MOVE_DIM: 1, MOVE_VPVS: 8}
 
 
 @dataclasses.dataclass
@@ -98,6 +107,7 @@ class SamplerConfig(typing.NamedTuple):
     acceptance: tuple
     iter_burnin: int
     iter_main: int
+    dtype: torch.dtype = DTYPE            # the chains' floating type
 
     @property
     def noiseinds(self):
@@ -109,9 +119,10 @@ class SamplerConfig(typing.NamedTuple):
         return not isinstance(self.vpvs_prior, (int, float))
 
 
-def make_config(priors, initparams, noiserefs, nl=None):
+def make_config(priors, initparams, noiserefs, nl=None, dtype=DTYPE):
     """SamplerConfig from reference-style priors/initparams dicts and the
-    targets' noiserefs ('swd'/'rf')."""
+    targets' noiserefs ('swd'/'rf'), its chains' states at ``dtype``
+    (float32 or float64)."""
     layers = tuple(int(v) for v in priors['layers'])
     if nl is None:
         nl = layers[1] + 1
@@ -147,7 +158,7 @@ def make_config(priors, initparams, noiserefs, nl=None):
         propdist=tuple(float(v) for v in initparams['propdist']),
         acceptance=tuple(float(v) for v in initparams['acceptance']),
         iter_burnin=int(initparams['iter_burnin']),
-        iter_main=int(initparams['iter_main']))
+        iter_main=int(initparams['iter_main']), dtype=dtype)
 
 
 class Rows(typing.NamedTuple):
@@ -175,6 +186,7 @@ class Sampler:
         self.ev = evaluator
         self.cfg = cfg
         self.device = torch.device(device)
+        self.dtype = cfg.dtype
         self.nl = cfg.nl
         noiseinds = cfg.noiseinds
         self.noiseinds = torch.tensor(noiseinds, dtype=torch.int64,
@@ -185,8 +197,10 @@ class Sampler:
         for i, p in enumerate(cfg.noise_priors):
             if not isinstance(p, (int, float)):
                 lo[i], hi[i] = p
-        self.noise_lo = torch.tensor(lo, dtype=DTYPE, device=self.device)
-        self.noise_hi = torch.tensor(hi, dtype=DTYPE, device=self.device)
+        self.noise_lo = torch.tensor(lo, dtype=self.dtype,
+                                     device=self.device)
+        self.noise_hi = torch.tensor(hi, dtype=self.dtype,
+                                     device=self.device)
         self.early_order = [MOVE_VS, MOVE_Z]
         self.late_order = [MOVE_VS, MOVE_Z, MOVE_DIM, MOVE_DIM]
         active = [MOVE_VS, MOVE_Z, MOVE_BIRTH]
@@ -204,6 +218,10 @@ class Sampler:
         iterations = cfg.iter_burnin + cfg.iter_main
         self.early_cutoff = -cfg.iter_burnin + iterations * 0.01
         self.idx_col = torch.arange(cfg.nl, device=self.device)[:, None]
+        # the prior bounds of the ring path's validity (K1 checks them
+        # on the batch path)
+        self.model_priors = {'layers': cfg.layers_prior, 'vs': cfg.vs_prior,
+                             'z': cfg.z_prior}
         # replica exchange (tempering.attach): swap_fn(states, parity,
         # logu) runs after every swap_every-th whole cycle
         self.swap_fn = None
@@ -250,10 +268,10 @@ class Sampler:
 
         def uniform():
             return block(torch.rand(width, generator=gen, device=dev,
-                                    dtype=DTYPE))
+                                    dtype=self.dtype))
 
         def index(m):
-            i = torch.floor(uniform() * m.to(DTYPE)).to(torch.int64)
+            i = torch.floor(uniform() * m.to(self.dtype)).to(torch.int64)
             return torch.minimum(i, m.to(torch.int64) - 1)
 
         d = {}
@@ -267,7 +285,7 @@ class Sampler:
         elif move != MOVE_VPVS:
             d['index'] = index(states.n)
         d['normal'] = block(torch.randn(width, generator=gen, device=dev,
-                                        dtype=DTYPE))
+                                        dtype=self.dtype))
         d['logu'] = torch.log(uniform())
         return d
 
@@ -276,7 +294,7 @@ class Sampler:
         the full width of the batch."""
         width, rows = self._draw_width(states)
         u = torch.rand(width, generator=gen, device=states.n.device,
-                       dtype=DTYPE)
+                       dtype=self.dtype)
         return torch.log(u if rows is None else u[rows])
 
     def advance(self, states, item, gen):
@@ -393,11 +411,11 @@ class Sampler:
         lo, hi = self.cfg.acceptance
         do_adapt = (torch.remainder(states.iiter, 1000) == 0) & (
             (proposed > 0) | ~self.active_slots[None, :]).all(dim=1)
-        rates = (accepted.to(DTYPE)
-                 / torch.clamp(proposed, min=1).to(DTYPE) * 100.0)
+        rates = (accepted.to(self.dtype)
+                 / torch.clamp(proposed, min=1).to(self.dtype) * 100.0)
         factor = torch.where(rates < lo, 0.95, torch.where(rates > hi,
                                                            1.05, 1.0))
-        factor = torch.where(proposed > 0, factor, 1.0).to(DTYPE)
+        factor = torch.where(proposed > 0, factor, 1.0).to(self.dtype)
         new_pd = states.propdist * factor
         new_pd = torch.where((rates < lo) & (proposed > 0),
                              torch.clamp(new_pd, min=0.001), new_pd)
@@ -434,7 +452,13 @@ class Sampler:
 
     def step(self, states, move, draws):
         """One iteration of every chain with ``move`` (MOVE_VS, MOVE_Z,
-        MOVE_DIM, MOVE_NOISE or MOVE_VPVS)."""
+        MOVE_DIM, MOVE_NOISE or MOVE_VPVS).  An evaluator with the batch
+        path evaluates the (NL, C) proposal through K1 (its prior
+        validity among them) and the walk (``WARM``); one without it, the
+        per-chain ring path of the JAX sampler's non-TPU runs
+        (``bayhunter_tpu/sampler/chain.py:894-901``, ``:1271-1281``),
+        through ``eval_full`` at the move's ring half-width (``RING``),
+        the prior validity from ``voronoi.model_is_valid_T``."""
         if move == MOVE_NOISE:
             return self._step_noise(states, draws)
         if move == MOVE_VPVS:
@@ -444,11 +468,22 @@ class Sampler:
             prop = self.propose_dim_T(states, vs_t, z_t, draws)
         else:
             prop = self.propose_T(states, vs_t, z_t, move, draws)
-        logL_p, misfits_p, fvalid, cache_p, mvalid = \
-            self.ev.eval_full_batch_t(
-                prop['vs_t'].contiguous(), prop['z_t'].contiguous(),
+        if getattr(self.ev, 'batch', True):
+            logL_p, misfits_p, fvalid, cache_p, mvalid = \
+                self.ev.eval_full_batch_t(
+                    prop['vs_t'].contiguous(), prop['z_t'].contiguous(),
+                    prop['n'], states.vpvs, states.noise, states.cache,
+                    WARM[move], states.cell)
+        else:
+            cfg = self.cfg
+            mvalid = _vor.model_is_valid_T(
+                prop['vs_t'], prop['z_t'], prop['n'], states.vpvs,
+                self.model_priors, cfg.thickmin, cfg.lvz, cfg.hvz,
+                cfg.mantle)
+            logL_p, misfits_p, fvalid, cache_p = self.ev.eval_full(
+                prop['vs_t'].T.contiguous(), prop['z_t'].T.contiguous(),
                 prop['n'], states.vpvs, states.noise, states.cache,
-                WARM[move], states.cell)
+                RING[move], states.cell)
         return self.accept(states, move, prop, mvalid, logL_p, misfits_p,
                            fvalid, cache_p, vs_t, z_t)
 
@@ -472,15 +507,21 @@ class Sampler:
     def _step_vpvs(self, states, draws):
         """Perturb vp/vs (``_move_vpvs_B``): vpvs + normal * propdist[:,
         4], valid by the vp/vs prior alone — the model planes do not
-        change — and evaluated warm through K1 with the proposed vp/vs
-        (``WARM_VPVS``)."""
+        change — and evaluated warm with the proposed vp/vs: through K1
+        (``WARM_VPVS``), or on the ring path at ``RING[MOVE_VPVS]``."""
         vpvs_p = states.vpvs + draws['normal'] * states.propdist[:, 4]
         lo, hi = self.cfg.vpvs_prior
         valid = (vpvs_p >= lo) & (vpvs_p <= hi)
-        logL_p, misfits_p, fvalid, cache_p, _ = self.ev.eval_full_batch_t(
-            states.vs.T.contiguous(), states.z.T.contiguous(), states.n,
-            vpvs_p, states.noise, states.cache, WARM[MOVE_VPVS],
-            states.cell)
+        if getattr(self.ev, 'batch', True):
+            logL_p, misfits_p, fvalid, cache_p, _ = \
+                self.ev.eval_full_batch_t(
+                    states.vs.T.contiguous(), states.z.T.contiguous(),
+                    states.n, vpvs_p, states.noise, states.cache,
+                    WARM[MOVE_VPVS], states.cell)
+        else:
+            logL_p, misfits_p, fvalid, cache_p = self.ev.eval_full(
+                states.vs, states.z, states.n, vpvs_p, states.noise,
+                states.cache, RING[MOVE_VPVS], states.cell)
         prop = dict(vpvs=vpvs_p, logu=draws['logu'])
         return self.accept(states, MOVE_VPVS, prop, valid, logL_p,
                            misfits_p, fvalid, cache_p)
@@ -595,11 +636,12 @@ class Sampler:
             nchains = self.rows.stop - self.rows.start
 
         dev = self.device
+        np_dtype = np.float64 if self.dtype == torch.float64 else np.float32
 
-        def f32(x):
-            return torch.tensor(np.asarray(x, np.float32), device=dev)
+        def real(x):
+            return torch.tensor(np.asarray(x, np_dtype), device=dev)
 
-        vs_j, z_j, vpvs_j, noise_j = (f32(x) for x in (vs_full, z_full,
+        vs_j, z_j, vpvs_j, noise_j = (real(x) for x in (vs_full, z_full,
                                                        vpvs_h, noise_h))
         n_j = torch.full((nchains,), n_init, dtype=torch.int32, device=dev)
         cells_j = torch.zeros(nchains, dtype=torch.int32, device=dev) \
@@ -617,13 +659,13 @@ class Sampler:
         states = ChainState(
             vs=vs_j, z=z_j, n=n_j, vpvs=vpvs_j, noise=noise_j, logL=logL,
             misfits=misfits,
-            propdist=f32(np.broadcast_to(cfg.propdist, (nchains, 5))),
+            propdist=real(np.broadcast_to(cfg.propdist, (nchains, 5))),
             accepted=zeros5(), proposed=zeros5(), fwdfail=zeros5(),
             iiter=torch.full((nchains,), -cfg.iter_burnin,
                              dtype=torch.int32, device=dev),
             cache=cache,
-            beta=torch.ones(nchains, dtype=DTYPE, device=dev)
-            if betas is None else f32(betas),
+            beta=torch.ones(nchains, dtype=self.dtype, device=dev)
+            if betas is None else real(betas),
             cell=cells_j, swap_accepted=zeros(), swap_proposed=zeros())
         return states, gen
 
@@ -755,7 +797,7 @@ class SingleChain(object):
         seed = (random_seed if random_seed is not None
                 else int(np.random.RandomState().randint(2 ** 31)))
         self._runner = MCMC_Optimizer.without_files(
-            targets, ip, modelpriors or {}, seed, device)
+            targets, ip, modelpriors or {}, seed, device=device)
         run = self._runner
         run.initparams.setdefault(
             'segment_iters', max(run.iter_phase1, run.iter_phase2, 1))

@@ -43,17 +43,20 @@ inversions, a matrix (ncells, ndata) (``_TargetSpec.batched_obs``,
 Kernels on each path: the cold evaluation runs K4 (Rayleigh) or K5
 (Love) for every secular evaluation of its counting search and
 refinement, and K6 then K3 over all nsamp/2 + 1 frequencies for each
-RF target; a warm step runs K1 (its spherical kernel when a target is
-spherical), K2 per dispersion target (a group target's 2P lanes with
-12 bisections; a spherical Love target on K1's Love density plane) and
-K3 over the Gauss-cut frequencies per RF target; a custom target adds no
-kernel (K1 returns the layers).
+RF target; a warm step of the batch path runs K1 (its spherical kernel
+when a target is spherical), K2 per dispersion target (a group target's
+2P lanes with 12 bisections; a spherical Love target on K1's Love
+density plane) and K3 over the Gauss-cut frequencies per RF target; a
+custom target adds no kernel (K1 returns the layers).  A warm step of
+the per-chain ring path (``eval_full``; the path of float64 runs, as in
+the JAX package) runs what the cold evaluation runs, its search the
+ring from the cached roots; in float64 every kernel is its double
+instance.
 """
 
 import numpy as np
 import torch
 
-from bayhunter_tpu_torch import DTYPE
 from bayhunter_tpu_torch.ops import likelihood as lk
 from bayhunter_tpu_torch.ops import prep as _prep
 from bayhunter_tpu_torch.ops import resp as _resp
@@ -87,13 +90,13 @@ class TargetSpec:
     """Host-precomputed constants of one target, on ``device``."""
 
     def __init__(self, target, corr_fixed, corr_value, rcond, device,
-                 dof_correction=False):
+                 dof_correction=False, dtype=torch.float32):
         self.ref = target.ref
         self.kind = 'swd' if target.ref in SWD_REFS else \
             'rf' if target.ref in RF_WAVES else 'custom'
         # (ndata,) for one station, or (ncells, ndata) for batched
         # observations, each chain reading the row of its cell
-        self.yobs = torch.tensor(target.obsdata.y, dtype=DTYPE,
+        self.yobs = torch.tensor(target.obsdata.y, dtype=dtype,
                                  device=device)
         self.batched_obs = self.yobs.dim() == 2
         self.ndata = int(self.yobs.shape[-1])
@@ -104,19 +107,20 @@ class TargetSpec:
             self.mode = int(plugin.modelparams.get('mode', 1))
             self.flsph = int(plugin.modelparams.get('flsph', 0))
             obsx = np.asarray(target.obsdata.x, float)
+            np_dtype = np.float64 if dtype == torch.float64 else np.float32
             self.interp_x = None
             if obsx.size > 60:
                 # the reference's 60-period cap, then interpolation
                 # (src/surf96_modsw.py:35-43, 106-122)
                 self.periods = np.linspace(obsx.min(), obsx.max(),
-                                           60).astype(np.float32)
-                self.interp_x = torch.tensor(obsx, dtype=DTYPE,
+                                           60).astype(np_dtype)
+                self.interp_x = torch.tensor(obsx, dtype=dtype,
                                              device=device)
             else:
-                self.periods = obsx.astype(np.float32)
+                self.periods = obsx.astype(np_dtype)
             self.t, lanes = _swd.lane_periods(self.periods, self.igr,
-                                              device)
-            self.omegas = _swd.angular_frequencies(lanes, device)
+                                              device, dtype)
+            self.omegas = _swd.angular_frequencies(lanes, device, dtype)
         elif self.kind == 'rf':
             mp = plugin.modelparams
             self.wave_type = RF_WAVES[target.ref]
@@ -128,7 +132,8 @@ class TargetSpec:
             self.nsv = None if mp.get('nsv') is None else float(mp['nsv'])
             self.cut = _rf.gauss_cut(self.nsamp, self.fsamp, self.gauss_a)
             self.dft = _rf.dft_tables(self.cut, self.nsamp, self.fsamp,
-                                      self.tshift, self.gauss_a, device)
+                                      self.tshift, self.gauss_a, device,
+                                      dtype)
         else:
             self.forward = getattr(plugin, 'run_model_torch', None)
             if self.forward is None:
@@ -144,12 +149,12 @@ class TargetSpec:
             w, logdet = lk.gauss_whitener(corr_value, self.ndata,
                                           rcond=rcond,
                                           return_kept=self.dof_correction)
-            self.whitener = torch.tensor(w, dtype=DTYPE, device=device)
+            self.whitener = torch.tensor(w, dtype=dtype, device=device)
             self.logcorr_det = float(logdet)
         elif self.cov == 'nocorr_scalederr':
             yerr = np.asarray(target.obsdata.yerr, float)
             scaled = yerr / yerr.min()
-            self.scaled_err = torch.tensor(scaled, dtype=DTYPE,
+            self.scaled_err = torch.tensor(scaled, dtype=dtype,
                                            device=device)
             self.log_scalederr_sum = float(np.sum(np.log(scaled)))
 
@@ -208,9 +213,25 @@ class Evaluator:
       eval_full_batch_t(vs_t, z_t, n, vpvs, noise, cache, warm, cell)
           -> (logL, misfits, valid, cache, model_valid)
                                                      (NL, C) models
+      eval_full(vs, z, n, vpvs, noise, cache, ring, cell)
+          -> (logL, misfits, valid, cache)           row-major (C, NL)
 
     ``cell`` (C,) int32 selects each chain's row of batched observations
     and may be None when no target has them.
+
+    Two warm paths, as the JAX package's ``build_evaluator`` has them
+    (``use_batch_swd``): the batch path ``eval_full_batch_t`` (K1, K2,
+    K3 at the Gauss-cut lanes; float32 only), and the per-chain ring
+    path ``eval_full`` (``bayhunter_tpu/sampler/evaluator.py:252-282``):
+    each dispersion target solved from its cached roots by the pure
+    expanding ring of half-width ``ring`` and the refinement
+    (``swd.surfdisp_roots_warm``: K4 or K5), each RF target as the cold
+    evaluation computes it (K6, then K3 at all nsamp/2 + 1 lanes and the
+    inverse FFT), a custom target's forward on ``voronoi_to_layers``;
+    its ring covers the search range, so no proposal is rejected for a
+    bounded walk.  ``dtype`` is
+    the evaluation's (float32 or float64: the kernels' double instances)
+    and ``batch`` whether the batch path is built (float32 only).
 
     In a worker of a split run ``rows`` (``chain.Rows``, set with the
     sampler's) places the chains in the whole batch: the cold chunks
@@ -222,9 +243,19 @@ class Evaluator:
     it does there.
     """
 
-    def __init__(self, joint, priors, initparams, nl, device):
+    def __init__(self, joint, priors, initparams, nl, device,
+                 dtype=torch.float32, use_batch_swd=True):
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError('dtype %s: the evaluator runs float32 or '
+                             'float64' % dtype)
+        if use_batch_swd and dtype != torch.float32:
+            raise ValueError('the batch path (K1, K2) runs float32 only; '
+                             'a %s evaluator takes the per-chain ring path '
+                             '(use_batch_swd=False)' % dtype)
         self.nl = int(nl)
         self.device = torch.device(device)
+        self.dtype = dtype
+        self.batch = bool(use_batch_swd)
         mantle = priors.get('mantle')
         self.mantle = None if mantle is None \
             else (float(mantle[0]), float(mantle[1]))
@@ -236,7 +267,8 @@ class Evaluator:
             corr_fixed = isinstance(corr_prior, (int, float))
             self.specs.append(TargetSpec(
                 target, corr_fixed, float(corr_prior) if corr_fixed
-                else None, rcond, self.device, dof_correction=dof))
+                else None, rcond, self.device, dof_correction=dof,
+                dtype=dtype))
         # the (slowness, wave type) of each RF target, in target order:
         # the model kernel builds one operand set per entry
         self.rf_specs = tuple((s.p_skm, s.wave_type) for s in self.specs
@@ -284,7 +316,7 @@ class Evaluator:
     def _score(self, ys, tvalids, noise, cell, wide):
         """logL, misfits and validity from per-target synthetics."""
         C = noise.shape[0]
-        logL = torch.zeros(C, dtype=DTYPE, device=noise.device)
+        logL = torch.zeros(C, dtype=self.dtype, device=noise.device)
         valid = torch.ones(C, dtype=torch.bool, device=noise.device)
         misfits = []
         for i, (spec, y, tvalid) in enumerate(zip(self.specs, ys,
@@ -306,14 +338,12 @@ class Evaluator:
                               torch.full_like(misfits, MISFIT_SENTINEL))
         return logL, misfits, valid
 
-    @staticmethod
-    def _empty(C, device):
-        return torch.zeros((C, 0), dtype=DTYPE, device=device)
+    def _empty(self, C, device):
+        return torch.zeros((C, 0), dtype=self.dtype, device=device)
 
-    @staticmethod
-    def _custom(spec, h, vp, vs, rho):
+    def _custom(self, spec, h, vp, vs, rho):
         """(y, tvalid) of a custom target's forward on (C, NL) layers."""
-        y = torch.as_tensor(spec.forward(h, vp, vs, rho), dtype=DTYPE,
+        y = torch.as_tensor(spec.forward(h, vp, vs, rho), dtype=self.dtype,
                             device=h.device)
         return y, torch.isfinite(y).all(dim=-1)
 
@@ -330,6 +360,21 @@ class Evaluator:
     def eval_cold(self, vs, z, n, vpvs, noise, cell=None):
         """Cold evaluation of row-major (C, NL) models, in chunks of
         ``COLD_CHUNK`` rows of the whole batch."""
+        return self._chunks(vs, z, n, vpvs, noise, cell)
+
+    def eval_full(self, vs, z, n, vpvs, noise, cache, ring, cell=None):
+        """Warm evaluation of row-major (C, NL) proposals on the per-chain
+        ring path (the JAX ``eval_full``): each dispersion target from
+        its cached roots ``cache[i][1]`` by the ring of half-width
+        ``ring`` (:func:`swd.surfdisp_roots_warm`), each RF and custom
+        target as :meth:`eval_cold` computes it; in chunks of
+        ``COLD_CHUNK`` rows, as :meth:`eval_cold`."""
+        return self._chunks(vs, z, n, vpvs, noise, cell, cache, ring)
+
+    def _chunks(self, vs, z, n, vpvs, noise, cell, cache=None, ring=None):
+        """:meth:`_eval_rows` on chunks of ``COLD_CHUNK`` rows of the
+        whole batch (a worker's rows on the one-device run's grid),
+        concatenated."""
         C = vs.shape[0]
         first, total = (0, C) if self.rows is None \
             else (self.rows.start, self.rows.total)
@@ -338,9 +383,12 @@ class Evaluator:
             a, b = max(g, first) - first, min(g + COLD_CHUNK, first + C) \
                 - first
             place = (a + first - g, min(g + COLD_CHUNK, total) - g)
-            parts.append(self._eval_cold(
+            parts.append(self._eval_rows(
                 vs[a:b], z[a:b], n[a:b], vpvs[a:b], noise[a:b],
-                None if cell is None else cell[a:b], self._wide(place)))
+                None if cell is None else cell[a:b], self._wide(place),
+                None if cache is None else tuple(
+                    tuple(x[a:b] for x in entry) for entry in cache),
+                ring))
         cache = tuple(tuple(torch.cat([p[3][t][k] for p in parts])
                             for k in range(3))
                       for t in range(self.ntargets))
@@ -348,27 +396,35 @@ class Evaluator:
                 torch.cat([p[1] for p in parts]),
                 torch.cat([p[2] for p in parts]), cache)
 
-    def _eval_cold(self, vs, z, n, vpvs, noise, cell, wide):
+    def _eval_rows(self, vs, z, n, vpvs, noise, cell, wide, cache=None,
+                   ring=None):
+        """One chunk: cold without ``cache``, else warm from its roots on
+        the ring of half-width ``ring``."""
         C = vs.shape[0]
         h, vp, vs_l, rho = _vor.voronoi_to_layers(vs, z, n, vpvs,
                                                   self.mantle)
-        ys, tvalids, cache = [], [], []
-        for spec in self.specs:
+        ys, tvalids, new_cache = [], [], []
+        for i, spec in enumerate(self.specs):
             if spec.kind == 'swd':
-                cg, err, roots, slopes = _swd.surfdisp_roots_cold(
-                    h, vp, vs_l, rho, spec.periods, spec.iwave, spec.mode,
-                    spec.igr, spec.flsph)
+                if cache is None:
+                    cg, err, roots, slopes = _swd.surfdisp_roots_cold(
+                        h, vp, vs_l, rho, spec.periods, spec.iwave,
+                        spec.mode, spec.igr, spec.flsph)
+                else:
+                    cg, err, roots, slopes = _swd.surfdisp_roots_warm(
+                        h, vp, vs_l, rho, spec.periods, cache[i][1], ring,
+                        spec.iwave, spec.mode, spec.igr, spec.flsph)
                 y = spec.interpolated(cg)
                 ys.append(y)
                 tvalids.append(~err)
-                cache.append((y, roots, slopes))
+                new_cache.append((y, roots, slopes))
                 continue
             if spec.kind == 'custom':
                 y, tvalid = self._custom(spec, h, vp, vs_l, rho)
                 ys.append(y)
                 tvalids.append(tvalid)
-                cache.append((y, self._empty(C, vs.device),
-                              self._empty(C, vs.device)))
+                new_cache.append((y, self._empty(C, vs.device),
+                                  self._empty(C, vs.device)))
                 continue
             coefs, pack = _prep.rf_operands(
                 *(x.T.contiguous() for x in (h, vp, vs_l, rho)), spec.p_skm,
@@ -379,10 +435,10 @@ class Evaluator:
                                              True, wide)
             ys.append(y)
             tvalids.append(tvalid)
-            cache.append((y, self._empty(C, vs.device),
-                          self._empty(C, vs.device)))
+            new_cache.append((y, self._empty(C, vs.device),
+                              self._empty(C, vs.device)))
         logL, misfits, valid = self._score(ys, tvalids, noise, cell, wide)
-        return logL, misfits, valid, tuple(cache)
+        return logL, misfits, valid, tuple(new_cache)
 
     def eval_noise(self, noise, cache, cell=None):
         """Likelihood under new noise parameters from the cached
@@ -443,6 +499,10 @@ def _opt(x):
     return None if x is None else float(x)
 
 
-def build_evaluator(joint, priors, initparams, nl, device):
-    """The :class:`Evaluator` of a joint target on ``device``."""
-    return Evaluator(joint, priors, initparams, nl, device)
+def build_evaluator(joint, priors, initparams, nl, device,
+                    dtype=torch.float32, use_batch_swd=True):
+    """The :class:`Evaluator` of a joint target on ``device`` at
+    ``dtype``, with the batch path (``use_batch_swd``, float32 only) or
+    the per-chain ring path alone."""
+    return Evaluator(joint, priors, initparams, nl, device, dtype,
+                     use_batch_swd)

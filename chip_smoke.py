@@ -89,9 +89,12 @@ Then it drives the inversion as users run it,
     law, an inverted vp/vs) with the mantle prior (4.1, 1.8) and
     positive SWD data errors (the scaled-error law), 10,240 chains,
     512 + 512 iterations, the same contract checks;
-  * (d) the tutorial as its users run it: 21 chains, 32,768 + 16,384
-    iterations, ``maxmodels`` 50,000, checked against recovery bands
-    (``RECOVERY``, from ``tools/tutorial_recovery.py`` on the card).
+  * (d) the tutorial as its users run it, 21 chains, ``maxmodels``
+    50,000, at the schedule S of ``docs/posterior_S/`` (4,096 + 2,048
+    iterations, ``TUTORIAL_SCHEDULE``; the tutorial's 32,768 + 16,384
+    runs in ``tools/tutorial_recovery.py``), checked against the range
+    of the 64 committed port seeds at S (``RECOVERY_S``) and logged
+    beside its seed's committed line.
 
 Then (h), the receiver-function forms and custom targets: K6's
 unflattened arm (``rf_prep_kernel<false>``, P and SV, 10,240 grown
@@ -179,6 +182,22 @@ against the golden fixtures; (l-6) ``tutorial/tutorialhunt_torch.py``
 at 21 chains, 512 + 512 iterations, without figures: the ``.npy``
 contract and the final posterior arrays.
 
+Then (m), the JAX package's per-chain ring path (``build_evaluator(...,
+use_batch_swd=False)``, the path of every float64 run) and the float64
+instances of K3, K4, K5 and K6: (m-1) each against its twin run in
+float64 on the card, bit for bit, at 10,240 grown chains (K4/K5 on the
+ring's first trip at half-width 16, (C, 21, 33), around the chains'
+float64 cold roots; K6 on their layer planes; K3 at all 257 lanes),
+records ``K4_f64``, ``K5_f64``, ``K6_f64``, ``K3_f64`` bound by float64
+operations over 34 TFLOP/s; (m-2) ``tutorial`` on the ring path at
+10,240 chains in float32 and in float64: cold init, the early cycles
+and 32 timed late iterations, proposals/s, the forward rejects (the
+dimension moves' under ``RING_DIM_REJECT_PCT``), the launches (K4, K6,
+K3 of the run's type; no K1, no K2) and the dimension steps' ring
+trips; (m-3) ``MCMC_Optimizer(dtype=torch.float64)`` at 1,024 chains,
+256 + 256, with the ``.npy`` contract (float32 files) and no float32
+kernel launched.
+
 Last it profiles the late steps of ``tutorial``: host-clock time per
 move, and under ``torch.profiler`` the device's busy and idle share and
 each kernel's device time, and each configuration's cold init: its wall
@@ -218,10 +237,11 @@ PROFILE_CYCLES = 4    # late cycles under torch.profiler
 COLD_CHUNK = 2048      # chains per cold-init chunk (evaluator.COLD_CHUNK)
 # device kernel names, as the profiler lists them
 KERNEL_NAMES = {'K1': '::prep_kernel<', 'K2': 'walk_kernel',
-                'K3': 'resp_kernel', 'K4': 'secular_kernel<2>',
-                'K5': 'secular_kernel<1>', 'K6': 'rf_prep_kernel',
+                'K3': 'resp_kernel<float', 'K4': 'secular_kernel<float, 2>',
+                'K5': 'secular_kernel<float, 1>',
+                'K6': 'rf_prep_kernel<float',
                 'K1_sph': '::prep_sph_kernel<',
-                'K6_unflat': 'rf_prep_kernel<false>'}
+                'K6_unflat': 'rf_prep_kernel<float, false>'}
 SIX_LATE_CYCLES = 16  # timed late cycles of each six-target path
 PUBLIC_CALLS = 3      # surfdisp_batch calls per case of phase (f)
 # (e): K1's dispersion sets — the flat set, the spherical Rayleigh set
@@ -254,7 +274,20 @@ TUTORIAL_SEED = 1
 # (about 1,000 iterations on the card) would make the sample path, and
 # the recovery check, depend on the host's speed
 TUTORIAL_SEGMENT = 1024
+# (d)'s schedule: S, the shortened schedule of docs/posterior_S/ (the
+# tutorial's 32,768 + 16,384 took 168-352 s of this script's time)
+TUTORIAL_SCHEDULE = (4096, 2048)
 MANTLE = (4.1, 1.8)
+# (m): the ring path.  K4/K5's float64 check grid: the first trip of the
+# vs moves' ring (half-width 16); the late iterations timed at 10,240
+# chains; the bound on the dimension moves' forward rejects (the JAX
+# package's CPU runs, which take this path, recorded none); the float64
+# optimizer run's chains and iterations
+RING_CHECK_HALFWIDTH = 16
+RING_LATE_ITERS = 32
+RING_DIM_REJECT_PCT = 1.0
+F64_CHAINS = 1024
+F64_ITERS = (256, 256)
 # (h): the RF solver options (rf.SUPPRESS_MULTIPLES = 1,
 # rf.WITHOUT_ANELASTICITY = 2), the custom-target run's chains and
 # iterations, and the bound on rf_pd.invert_rf's rms[-1] / rms[0] in
@@ -307,18 +340,22 @@ TOMO_CELL_SHARE = 0.9
 # (i): the widths of K1 and K2's ragged checks and profiles beyond the
 # main path's: the tomography batch and a ragged one
 TOMO_WIDTHS = (100000, 100003)
-# (d)'s recovery bands, set from tools/tutorial_recovery.py runs of
-# seeds 1-11 on the card (PERF.md section 4) around the reference run of
-# VALIDATION.md:60-65: the posterior's layer-count mode (nuclei,
-# halfspace included; the reference's 5-6 family), P(5) + P(6) of the
-# pooled better half (0.53-0.97 over those seeds: a 21-chain run keeps
-# 6-18 chains, and one or two of them at 7-8 nuclei move it far), the
+# (d)'s recovery bands at S: the range of the 64 port seeds at S in
+# docs/posterior_S/port_S.json (tools/tutorial_recovery.py on the card,
+# PERF.md section 4), a little wider: the posterior's layer-count mode
+# (nuclei, halfspace included; 5-7 at S), P(5) + P(6) of the pooled
+# better half (0.156-1.0: a 21-chain run keeps 1-5 chains at S), the
 # noise medians (injected: sigma_RF 0.005, sigma_SWD the std of the
-# drawn SWD noise, 0.0111) and vp/vs (1.73)
-RECOVERY = {'nlay_mode': (5, 6), 'p56': (0.45, 1.0),
-            'sigma_rf_median': (0.0048, 0.0060),
-            'sigma_swd_median': (0.0105, 0.0125),
-            'vpvs_median': (1.70, 1.76)}
+# drawn SWD noise, 0.0111; 0.00509-0.01067 and 0.0107-0.0422 at S) and
+# vp/vs (1.73; 1.7237-1.7472 at S)
+RECOVERY_S = {'nlay_mode': (5, 7), 'p56': (0.15, 1.0),
+              'sigma_rf_median': (0.0050, 0.0110),
+              'sigma_swd_median': (0.0105, 0.0430),
+              'vpvs_median': (1.72, 1.75)}
+# the summary fields of (d) that a seed's committed line holds
+RECOVERY_FIELDS = ('nlay_hist', 'p56', 'sigma_rf_median',
+                   'sigma_swd_median', 'vpvs_median', 'accept_pct',
+                   'fwd_reject_pct', 'chains_kept')
 
 # (f): the public forward's bounds against the golden data, per target
 # (1e-4 phase, 5e-4 Rayleigh group, 1e-3 Love group,
@@ -336,10 +373,11 @@ SINGLE_ITERS = (512, 512)
 SINGLE_MAXMODELS = 256
 SINGLE_SEED = 20261018
 
-# The H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM bytes/s
-# and float32 operations/s outside the tensor cores.
+# The H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM bytes/s,
+# and float32 and float64 operations/s outside the tensor cores.
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = 67e12
+PEAK_FLOPS_F64 = 34e12
 # Float32 operations per unit of work, counted by hand from csrc/ (an
 # add, multiply, divide, compare-select, square root or other
 # transcendental is one operation each).
@@ -440,10 +478,12 @@ def nbytes(*tensors):
 
 
 def entry(counter, name, source, replaces, err, ms, plain_ms, moved, ops,
-          wrapper_ms=None):
+          wrapper_ms=None, peak=PEAK_FLOPS):
     """One kernel's record of the JSON line: ``moved`` bytes (each input
-    read once, each output written once) and ``ops`` float32 operations
-    that this run's inputs need give the bound; ``counter`` names its
+    read once, each output written once) and ``ops`` operations that this
+    run's inputs need, at ``peak`` operations/s (float32's, or
+    ``PEAK_FLOPS_F64`` for a float64 instance), give the bound;
+    ``counter`` names its
     launch count in :func:`launch_counts`.  ``ms`` is the kernel's time
     by CUDA events over back-to-back wrapper calls; for K1, K6 and K4/K5
     on the cold chunk, whose wrappers take about as long on the host as
@@ -451,7 +491,7 @@ def entry(counter, name, source, replaces, err, ms, plain_ms, moved, ops,
     fills in the profiler's device time, and the event time is
     ``wrapper_ms``."""
     t_bytes = 1e3 * moved / PEAK_BYTES
-    t_ops = 1e3 * ops / PEAK_FLOPS
+    t_ops = 1e3 * ops / peak
     rec = dict(counter=counter, name=name, route='cuda',
                source='bayhunter_tpu_torch/csrc/' + source,
                replaces='bayhunter_tpu/ops/' + replaces,
@@ -1559,7 +1599,11 @@ def launch_counts(raw=None):
                 K4=raw['swd.secular4']['launches'],
                 K5=raw['swd.secular1']['launches'],
                 K6=f['launches'], K6_unflat=f['unflat_launches'],
-                K1_layers=m['layer_launches'], **option_counts(r, q))
+                K1_layers=m['layer_launches'],
+                K4_f64=raw['swd.secular4']['f64_launches'],
+                K5_f64=raw['swd.secular1']['f64_launches'],
+                K6_f64=f['f64_launches'], K3_f64=r['f64_launches'],
+                K3_f64_sv=r['f64_sv_launches'], **option_counts(r, q))
 
 
 def option_counts(r, q):
@@ -1813,16 +1857,19 @@ def counted_init(sampler):
 
 
 def run_optimizer(torch, targets, priors, ip, seed, cls=None,
-                  resume=False, devices=None, files=True):
+                  resume=False, devices=None, files=True, dtype=None):
     """One ``mp_inversion`` with the launch counts set to 0 before, on
     the first card or split over ``devices`` (the workers' counts then,
     and none in this process), writing its files or (``files`` False)
-    keeping its snapshots; returns (optimizer, wall seconds, launches at
-    the end of the cold init, launches in all)."""
+    keeping its snapshots, at ``dtype`` when given; returns (optimizer,
+    wall seconds, launches at the end of the cold init, launches in
+    all)."""
     from bayhunter_tpu_torch import MCMC_Optimizer
     cls = cls or MCMC_Optimizer
     where = dict(devices=devices) if devices else dict(
         device=torch.device(CARD))
+    if dtype is not None:
+        where['dtype'] = dtype
     reset_counts()
     opt = cls(targets, ip, priors, random_seed=seed, **where) if files \
         else cls.without_files(targets, ip, priors, seed, **where)
@@ -2604,17 +2651,20 @@ def recovery_summary(opt):
                 vpvs_median=float(np.median(pooled['vpvs'][good])))
 
 
-def tutorial_run(torch, tmp, seed, nchains=21):
+def tutorial_run(torch, tmp, seed, nchains=21, schedule=None):
     """The tutorial as its users run it (``tutorial/tutorialhunt.py``:
-    21 chains, 32,768 + 16,384 iterations, ``maxmodels`` 50,000) from
-    ``seed``, its segment pinned at ``TUTORIAL_SEGMENT`` so that a seed
-    gives one sample path on any host; returns (stats with the recovery summary, launches at
-    init, launches)."""
+    21 chains, 32,768 + 16,384 iterations unless ``schedule`` (burn-in,
+    main) says otherwise, ``maxmodels`` 50,000) from ``seed``, its
+    segment pinned at ``TUTORIAL_SEGMENT`` so that a seed gives one
+    sample path on any host; returns (stats with the recovery summary,
+    launches at init, launches)."""
     from bayhunter_tpu_torch import bench_config
     targets, sd = bench_config.tutorial_targets()
     priors, ip = bench_config.tutorial_params()
     ip.update(nchains=nchains, segment_iters=TUTORIAL_SEGMENT,
               savepath=os.path.join(tmp, 'd%d' % seed))
+    if schedule is not None:
+        ip.update(iter_burnin=schedule[0], iter_main=schedule[1])
     opt, wall, at_init, counts = run_optimizer(torch, targets, priors, ip,
                                                seed)
     stats = optimizer_stats(opt, wall)
@@ -2624,16 +2674,27 @@ def tutorial_run(torch, tmp, seed, nchains=21):
 
 
 def optimizer_recovery(torch, tmp):
-    """(d): the tutorial run of ``TUTORIAL_SEED``, held to
-    ``RECOVERY``."""
-    stats, at_init, counts = tutorial_run(torch, tmp, TUTORIAL_SEED)
+    """(d): the tutorial run of ``TUTORIAL_SEED`` at
+    ``TUTORIAL_SCHEDULE``, held to ``RECOVERY_S``; whether its summary
+    equals its seed's committed line in ``docs/posterior_S/port_S.json``
+    (one sample path a seed) is logged."""
+    stats, at_init, counts = tutorial_run(torch, tmp, TUTORIAL_SEED,
+                                          schedule=TUTORIAL_SCHEDULE)
     stats['launches'] = counts
     log('optimizer (d), the tutorial at 21 chains: ' + json.dumps(stats))
-    bad = [k for k, (lo, hi) in RECOVERY.items()
+    with open(os.path.join(ROOT, 'docs', 'posterior_S', 'port_S.json')) as f:
+        [line] = [r for r in json.load(f) if r['seed'] == TUTORIAL_SEED]
+    same = [k for k in RECOVERY_FIELDS
+            if json.loads(json.dumps(stats[k])) == line[k]]
+    log('(d) equals its seed\'s committed line at S in %d of %d fields%s'
+        % (len(same), len(RECOVERY_FIELDS), '' if len(same) == len(
+            RECOVERY_FIELDS) else ' (%s differ)' % sorted(
+            set(RECOVERY_FIELDS) - set(same))))
+    bad = [k for k, (lo, hi) in RECOVERY_S.items()
            if not lo <= stats[k] <= hi]
     if bad:
         raise AssertionError('(d): %s outside the recovery bands %s'
-                             % (bad, RECOVERY))
+                             % (bad, RECOVERY_S))
     return stats, at_init, counts
 
 
@@ -2962,6 +3023,208 @@ def gates_and_tutorial(torch, dev, tmp, by_path):
     return out
 
 
+
+# ----------------------------------------------------------------------
+# (m): the per-chain ring path and the float64 instances
+# ----------------------------------------------------------------------
+
+def ring_kernels(torch, dev):
+    """(m-1): K4, K5, K6 and K3 in float64 against their twins run in
+    float64 on the card, bit for bit, at 10,240 grown chains and the ring
+    path's shapes: K4/K5 on the ring's first trip at ring 16 (the
+    previous roots and 16 points each side, (C, 21, 33)) around the
+    grown models' float64 cold roots, K6 on their layer planes, K3 at
+    all 257 lanes on K6's operands.  Returns their records (bound by
+    float64 operations over ``PEAK_FLOPS_F64``)."""
+    from bayhunter_tpu_torch.ops import prep, resp, rf, swd, voronoi
+    f64 = torch.float64
+    VS, Z, N = grown_models(C_MAIN, NL)
+    layers = voronoi.voronoi_to_layers(
+        torch.tensor(VS, device=dev, dtype=f64),
+        torch.tensor(Z, device=dev, dtype=f64), torch.tensor(N, device=dev),
+        torch.full((C_MAIN,), 1.73, dtype=f64, device=dev))
+    periods = np.loadtxt(os.path.join(ROOT, 'tests', 'fixtures',
+                                      'st3_rdispph.dat'))[:, 0]
+    _, err, roots, _ = swd.surfdisp_roots_cold(*layers, periods)
+    log('(m-1) the grown models\' float64 cold roots: %d of %d chains '
+        'solved at every period' % (int((~err).sum()), C_MAIN))
+    R, K = roots.shape[1], RING_CHECK_HALFWIDTH
+    omega = swd.angular_frequencies(periods, dev, f64)[None, :, None]
+    steps = torch.arange(1, K + 1, dtype=f64, device=dev) * swd.DDC
+    c = torch.cat([roots[..., None], roots[..., None] + steps,
+                   roots[..., None] - steps], dim=-1)
+    top = swd.layer_top(layers[0])
+    out = []
+    for iwave, counter, twin in ((2, 'K4_f64', swd.dltar4),
+                                 (1, 'K5_f64', swd.dltar1)):
+        args = layers if iwave == 2 else (layers[0], layers[2], layers[3])
+        call = secular_call(layers, c, omega, iwave)
+        tag = '%s %s secular values, float64, ring 16 trip 0 (%dx%dx%d)' % (
+            counter[:2], 'Rayleigh' if iwave == 2 else 'Love', C_MAIN, R,
+            2 * K + 1)
+        kv = call()
+        err_k = check_bitwise(torch, tag, (kv,),
+                              (twin(omega / c, omega, *args),))
+        out.append(entry(
+            counter, tag, 'secular.cu',
+            'pallas_secular.py:%d' % (267 if iwave == 2 else 332), err_k,
+            timed(call, KERNEL_REPS),
+            timed(lambda: twin(omega / c, omega, *args), 3),
+            nbytes(c, kv, *args) + 8 * R,
+            secular_ops(top, R * (2 * K + 1), iwave), peak=PEAK_FLOPS_F64))
+    planes = tuple(x.T.contiguous() for x in layers)
+    p_skm = 6.4 * rf.DEG_PER_KM
+    coefs, pack = prep.rf_operands(*planes, p_skm)
+    err6 = check_bitwise(torch, 'K6 RF operands, float64 (P)',
+                         (coefs, pack),
+                         prep.rf_operands_plain(*planes, p_skm))
+    out.append(entry(
+        'K6_f64', 'K6 RF operands, float64', 'prep.cu', 'pallas_prep.py:141',
+        err6, timed(lambda: prep.rf_operands(*planes, p_skm), KERNEL_REPS),
+        timed(lambda: prep.rf_operands_plain(*planes, p_skm), 3),
+        nbytes(*planes, coefs, pack),
+        C_MAIN * (OPS['rf_fixed'] + NL * (OPS['rf_flatten_slot']
+                                          + OPS['rf_t0_slot'])
+                  + (NL - 1) * OPS['rf_interface']), peak=PEAK_FLOPS_F64))
+    F = 257
+    rargs = (coefs, pack, F, 512, 5.0, rf.P_WAVE)
+    err3 = check_bitwise(torch, 'K3 RF response, float64 (%d lanes)' % F,
+                         resp.resp(*rargs), resp.resp_plain(*rargs))
+    depth = pack[rf.pack_offsets(NL)['depth']].clamp(max=NL - 2).double()
+    out.append(entry(
+        'K3_f64', 'K3 RF response, float64 (%d lanes)' % F, 'resp.cu',
+        'pallas_rf.py:288', err3, timed(lambda: resp.resp(*rargs),
+                                        KERNEL_REPS),
+        timed(lambda: resp.resp_plain(*rargs), 3),
+        nbytes(pack, *resp.resp(*rargs))
+        + 8 * 32 * C_MAIN * float((depth + 1).mean()),
+        resp_ops(F, depth, False, 0), peak=PEAK_FLOPS_F64))
+    log('(m-1) geometries: K4 %s, K5 %s, K6 %s, K3 %s' % (
+        swd.geometry(C_MAIN, R, 2 * K + 1, NL, 2, 8),
+        swd.geometry(C_MAIN, R, 2 * K + 1, NL, 1, 8),
+        prep.geometry(C_MAIN, NL, 1, False, elem=8),
+        resp.geometry(C_MAIN, F, NL, elem=8)))
+    return out
+
+
+def ring_main_path(torch, dev, dtype):
+    """(m-2): ``tutorial`` through ``build_evaluator(...,
+    use_batch_swd=False)`` at 10,240 chains and ``dtype``: its cold
+    init, the early cycles and ``RING_LATE_ITERS`` timed late iterations,
+    the launch counts set to 0 before and read after; logs the rate, the
+    forward rejects (the dimension moves' expected near 0), the launches
+    and the ring trips of the dimension steps.  Fails unless K4, K6 and
+    K3 at ``dtype`` launched and K1 and K2 did not.  Returns (launches at
+    init, launches in all)."""
+    from bayhunter_tpu_torch import bench_config
+    from bayhunter_tpu_torch.ops import swd
+    from bayhunter_tpu_torch.sampler.chain import (MOVE_DIM, cycle_moves,
+                                                   dispatch_cycles)
+    name = 'ring_path_%s' % str(dtype).split('.')[-1]
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    sampler, ev = bench_config.build_config('tutorial', dev, ITERS, NL,
+                                            dtype, use_batch_swd=False)
+    t0 = time.perf_counter()
+    states, gen = sampler.init_states_host(0, C_MAIN)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    at_init = launch_counts()
+    it = -ITERS
+    cel = len(sampler.early_order)
+    n_early = int(np.ceil(max(0.0, sampler.early_cutoff - it) / cel)) * cel
+    t0 = time.perf_counter()
+    states = dispatch_cycles(sampler, states, it, n_early, gen)
+    it += n_early
+    clen = len(sampler.late_order)
+    states = dispatch_cycles(sampler, states, it, 2 * clen, gen)   # warm
+    it += 2 * clen
+    torch.cuda.synchronize()
+    t_early = time.perf_counter() - t0
+    ff0, pp0 = (x.sum(0).cpu().numpy() for x in (states.fwdfail,
+                                                states.proposed))
+    dim_trips = dim_calls = 0
+    t0 = time.perf_counter()
+    for move in cycle_moves(sampler, it, RING_LATE_ITERS, gen):
+        calls, trips = swd.ring_brackets.calls, swd.ring_brackets.trips
+        states = sampler.advance(states, move, gen)
+        if move == MOVE_DIM:
+            dim_calls += swd.ring_brackets.calls - calls
+            dim_trips += swd.ring_brackets.trips - trips
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    ff, pp = (x.sum(0).cpu().numpy() - y for x, y in (
+        (states.fwdfail, ff0), (states.proposed, pp0)))
+    stats = dict(
+        config=name, init_s=t_init, early_s=t_early,
+        proposals_per_s=RING_LATE_ITERS * C_MAIN / dt,
+        iters_timed=RING_LATE_ITERS, seconds_timed=dt,
+        fwd_reject_pct=100.0 * ff.sum() / max(pp.sum(), 1),
+        fwd_reject_dim_pct=(100.0 * ff[2] / pp[2]) if pp[2] else None,
+        dim_ring_solves=dim_calls, dim_ring_trips=dim_trips,
+        peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        launches={k: v for k, v in launches.items() if v})
+    log('(m-2) ring path: ' + json.dumps(stats))
+    suffix = '_f64' if dtype == torch.float64 else ''
+    missing = [k for k in ('K4', 'K6', 'K3') if launches[k + suffix] == 0]
+    stray = [k for k in ('K1', 'K2_rayleigh') if launches[k]]
+    if missing or stray:
+        raise AssertionError('%s: kernels %s never launched, %s launched'
+                             % (name, missing, stray))
+    if dtype == torch.float64 and any(launches[k] for k in ('K3', 'K4',
+                                                             'K6')):
+        raise AssertionError('%s: a float32 kernel launched' % name)
+    if not (bool(torch.isfinite(states.logL).all())
+            and states.logL.dtype == dtype
+            and stats['fwd_reject_dim_pct'] is not None
+            and stats['fwd_reject_dim_pct'] < RING_DIM_REJECT_PCT):
+        raise AssertionError('%s: logL %s, dimension rejects %s %%'
+                             % (name, states.logL.dtype,
+                                stats['fwd_reject_dim_pct']))
+    RATES[name] = stats['proposals_per_s']
+    return at_init, launches
+
+
+def optimizer_float64(torch, tmp):
+    """(m-3): ``MCMC_Optimizer(dtype=torch.float64)`` on the tutorial's
+    configuration at ``F64_CHAINS`` chains, ``F64_ITERS``, with the
+    ``.npy`` contract (float32 files)."""
+    from bayhunter_tpu_torch import bench_config
+    targets, _ = bench_config.tutorial_targets()
+    priors, ip = bench_config.tutorial_params()
+    ip.update(nchains=F64_CHAINS, iter_burnin=F64_ITERS[0],
+              iter_main=F64_ITERS[1], maxmodels=64,
+              savepath=os.path.join(tmp, 'm3'))
+    opt, wall, at_init, counts = run_optimizer(
+        torch, targets, priors, ip, OPT_SEED, dtype=torch.float64)
+    if opt.eval_fn.batch or opt.final_states.logL.dtype != torch.float64:
+        raise AssertionError('(m-3) ran the batch path or float32')
+    stats = optimizer_stats(opt, wall)
+    stats.update(snapshots=check_contract(opt),
+                 launches={k: v for k, v in counts.items() if v})
+    log('optimizer (m-3), float64: ' + json.dumps(stats))
+    if any(counts[k] for k in ('K1', 'K2_rayleigh', 'K3', 'K4', 'K6')):
+        raise AssertionError('(m-3) launched a float32 kernel')
+    return at_init, counts
+
+
+def ring_path(torch, dev, tmp, by_path):
+    """(m): the float64 kernels (m-1), the ring path at float32 and
+    float64 (m-2), a float64 optimizer run (m-3); each path's launches
+    in ``by_path``.  Returns the float64 kernels' records."""
+    t_m = time.perf_counter()
+    kernels = ring_kernels(torch, dev)
+    for dtype in (torch.float32, torch.float64):
+        at_init, counts = ring_main_path(torch, dev, dtype)
+        by_path['ring_path_' + str(dtype).split('.')[-1]] = (at_init,
+                                                             counts, 1)
+    at_init, counts = optimizer_float64(torch, tmp)
+    by_path['optimizer_float64'] = (at_init, counts, 1)
+    log('(m) took %.1f s' % (time.perf_counter() - t_m))
+    return kernels
+
+
 def profile_steps(torch, sampler, states, gen, config='tutorial'):
     """Where the late steps' time goes in configuration ``config``:
     host-clock ms per step of each move (draws included,
@@ -3188,6 +3451,9 @@ def main():
         # (l): the sampler gates and the tutorial scripts
         gates_and_tutorial(torch, dev, tmp, by_path)
         phase('gates and tutorial')
+        # (m): the per-chain ring path and the float64 kernels
+        kernels += ring_path(torch, dev, tmp, by_path)
+        phase('ring path')
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # each record's launches on the paths: K1 by its number of RF

@@ -35,7 +35,13 @@ and group lanes; the public forward (``surfdisp``, ``SurfDisp``,
 the receiver-function forms bit for bit into NaN-filled memory (C = 1,
 37, 10,237): K6's unflattened arm (P and SV), K3's and K3r's options
 arms 1-3 (P and SV, F = 1, 99, 257), and K1's layer planes for a custom
-target without, with flat and with spherical dispersion targets.
+target without, with flat and with spherical dispersion targets; the
+float64 instances of K4, K5, K6 and K3 (the per-chain ring path of
+float64 runs) bit for bit against their twins run in float64, into
+NaN-filled memory (C = 1, 37, 10,237; K4/K5 on the ring's and the
+refinement's grids, K3 at F = 1, 99, 257 in arms 0 and 3, P and SV),
+mismatched dtypes refused, and a float64 ``MCMC_Optimizer`` on the card
+that runs them and no float32 kernel.
 
 Needs an NVIDIA GPU and nvcc (marker ``cuda``); skipped elsewhere.  On
 a machine with a card:
@@ -898,3 +904,114 @@ def test_model_operands_layer_planes_bitwise(dev, C, sets):
                     assert torch.equal(a, b)
         for a, b in zip(sum(krf, ()), sum(prf, ())):
             assert torch.equal(a, b)
+
+
+# ----------------------------------------------------------------------
+# the float64 instances of K4, K5, K6 and K3 (the per-chain ring path of
+# float64 runs): bit for bit against their twins run in float64, into
+# NaN-filled memory, at ragged shapes; mismatched dtypes refused
+# ----------------------------------------------------------------------
+
+F64 = torch.float64
+# K4/K5's float64 grids: the ring's trip 0 at ring 16 (33 points), the
+# refinement (17), the dimension ring's first blocks (3, 5) and a wide one
+SECULAR_SHAPES_F64 = ((21, 33), (21, 17), (21, 3), (60, 5))
+
+
+@pytest.mark.parametrize('R,K', SECULAR_SHAPES_F64)
+@pytest.mark.parametrize('C', [1, 37, 10237])
+def test_secular_float64_bitwise(dev, C, R, K):
+    planes, _ = _ragged_planes(dev, C)
+    layers = tuple(x.T.contiguous().to(F64) for x in planes)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(C + R + K)
+    c = 2.0 + 2.8 * torch.rand((C, R, K), generator=gen, device=dev,
+                               dtype=F64)
+    omega = swd.angular_frequencies(np.linspace(1.0, 60.0, R), dev, F64)
+    for iwave, counter in ((2, swd.secular4), (1, swd.secular1)):
+        _poison(dev)
+        before = counter.launches, counter.f64_launches
+        k = swd.secular_at(c, omega[None, :, None], *layers, iwave)
+        assert (counter.launches, counter.f64_launches) == (
+            before[0], before[1] + 1)
+        p = swd.secular_values(omega[None, :, None] / c, omega[None, :, None],
+                               *layers, iwave)
+        assert k.dtype == F64 and bool(torch.isfinite(p).all())
+        assert torch.equal(k, p)
+
+
+@pytest.mark.parametrize('C', [1, 37, 10237])
+def test_rf_operands_and_response_float64_bitwise(dev, C):
+    planes, _ = _ragged_planes(dev, C, water=False)
+    planes = tuple(x.to(F64) for x in planes)
+    for wave in (rf.P_WAVE, rf.SV_WAVE):
+        _poison(dev)
+        before = prep.rf_operands.launches, prep.rf_operands.f64_launches
+        kc, kp = prep.rf_operands(*planes, P_SKM, wave)
+        assert (prep.rf_operands.launches, prep.rf_operands.f64_launches) \
+            == (before[0], before[1] + 1)
+        pc, pp = prep.rf_operands_plain(*planes, P_SKM, wave)
+        assert kc.dtype == F64
+        assert torch.equal(kc, pc) and torch.equal(kp, pp)
+        for F in (1, 99, 257):
+            for options in (0, 3):
+                _poison(dev)
+                before = resp.resp.launches, resp.resp.f64_launches
+                ko = resp.resp(kc, kp, F, 512, 5.0, wave, options)
+                assert (resp.resp.launches, resp.resp.f64_launches) == (
+                    before[0], before[1] + 1)
+                po = resp.resp_plain(kc, kp, F, 512, 5.0, wave, options)
+                for a, b in zip(ko, po):
+                    assert a.dtype == F64 and bool(torch.isfinite(a).all())
+                    assert torch.equal(a, b)
+
+
+def test_mismatched_dtypes_are_refused(dev):
+    planes, _ = _ragged_planes(dev, 37, water=False)
+    layers = tuple(x.T.contiguous() for x in planes)
+    omega = swd.angular_frequencies(np.linspace(1.0, 60.0, 21), dev)
+    c = torch.full((37, 21, 3), 3.0, device=dev)
+    with pytest.raises(TypeError):      # float64 candidates, float32 layers
+        swd.secular_at(c.to(F64), omega[None, :, None], *layers, 2)
+    with pytest.raises(TypeError):      # float32 candidates, float64 layers
+        swd.secular_at(c, omega[None, :, None],
+                       *(x.to(F64) for x in layers), 1)
+    with pytest.raises(TypeError):
+        prep.rf_operands(planes[0].to(F64), *planes[1:], P_SKM)
+    coefs, pack = prep.rf_operands(*planes, P_SKM)
+    with pytest.raises(TypeError):
+        resp.resp(coefs.to(F64), pack, 99, 512, 5.0)
+    qp, qs = _q_planes(dev, 37)
+    with pytest.raises(TypeError):      # K3r runs float32 only
+        resp.resp_q(coefs.to(F64), pack.to(F64), qp.to(F64), qs.to(F64),
+                    99, 512, 5.0)
+
+
+def test_float64_optimizer_runs_the_ring_path_on_the_card(dev, tmp_path):
+    # a float64 MCMC_Optimizer without a device: the ring path's float64
+    # kernels (K4, K6, K3 at all lanes), no float32 launch and no K1/K2
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    from bayhunter_tpu_torch import MCMC_Optimizer, bench_config, ops
+    targets, _ = bench_config.tutorial_targets()
+    priors, ip = bench_config.tutorial_params()
+    ip.update(nchains=64, iter_burnin=24, iter_main=24, maxmodels=8,
+              savepath=str(tmp_path))
+    chip_smoke.reset_counts()
+    opt = MCMC_Optimizer(targets, ip, priors, random_seed=3, dtype=F64)
+    assert opt.device.type == 'cuda' and not opt.eval_fn.batch
+    opt.mp_inversion()
+    raw = ops.launch_counts()
+    assert raw['swd.secular4']['f64_launches'] > 0
+    assert raw['prep.rf_operands']['f64_launches'] > 0
+    assert raw['resp.resp']['f64_launches'] > 0
+    for key in ('prep.model_operands', 'walk.warm_roots_walk', 'resp.resp',
+                'swd.secular4', 'prep.rf_operands'):
+        assert raw[key]['launches'] == 0, key
+    assert chip_smoke.check_contract(opt) == {'p1': 8, 'p2': 8}
+    st = opt.final_states
+    assert st.vs.dtype == F64 and st.vs.device.type == 'cuda'
+    assert bool(torch.isfinite(st.logL).all())

@@ -51,18 +51,22 @@ def test_walker_lanes_covered_once(C, R, iwave):
 @pytest.mark.parametrize('F', [1, 99, 257])
 @pytest.mark.parametrize('C', [1, 37, 10237])
 def test_response_lanes_covered_once(C, F, q):
-    geo = resp.geometry(C, F, NL, q)
-    assert geo.threads % lanes.WARP == 0 and geo.threads <= resp.MAX_THREADS
-    assert geo.cs % 4 == 0 and geo.smem >= 4 * (geo.tile * geo.cs + 1)
-    assert geo.smem <= lanes.SMEM_MAX
-    lm = resp.lane_map(geo, C, F)
-    assert lm.shape[0] == geo.blocks and lm.shape[2] == geo.threads
-    assert _covered_once(lm, C * F)
-    # every block serves its tile's whole chains
-    for b in (0, geo.blocks - 1):
-        lane = lm[b].reshape(-1)
-        assert set(lane[lane >= 0] // F) == set(
-            range(b * geo.tile, min(C, (b + 1) * geo.tile)))
+    # K3 also at 8-byte elements (its float64 instances)
+    for elem in (4,) if q else (4, 8):
+        geo = resp.geometry(C, F, NL, q, elem)
+        assert geo.threads % lanes.WARP == 0
+        assert geo.threads <= resp.MAX_THREADS
+        assert geo.cs % 4 == 0
+        assert geo.smem >= elem * geo.tile * geo.cs + 4
+        assert geo.smem <= lanes.SMEM_MAX
+        lm = resp.lane_map(geo, C, F)
+        assert lm.shape[0] == geo.blocks and lm.shape[2] == geo.threads
+        assert _covered_once(lm, C * F)
+        # every block serves its tile's whole chains
+        for b in (0, geo.blocks - 1):
+            lane = lm[b].reshape(-1)
+            assert set(lane[lane >= 0] // F) == set(
+                range(b * geo.tile, min(C, (b + 1) * geo.tile)))
 
 
 def test_shared_bytes_fit_at_the_widest_shapes():
@@ -70,6 +74,15 @@ def test_shared_bytes_fit_at_the_widest_shapes():
         assert walk.geometry(10240, 60, NL, iwave).smem < 227 * 1024
     for q in (False, True):
         assert resp.geometry(10240, 257, NL, q).smem < 227 * 1024
+    # the float64 instances of K3, K4/K5 (the ring's 33 candidates and
+    # the refinement's 17 at 21 and 60 periods) and K6
+    assert resp.geometry(10240, 257, NL, False, 8).smem < 227 * 1024
+    for R in (21, 60):
+        for K in (33, 17):
+            for iwave in (1, 2):
+                assert swd.geometry(10240, R, K, NL, iwave, 8).smem \
+                    < 227 * 1024
+    assert prep.geometry(10240, 64, 1, False, elem=8).smem < 227 * 1024
 
 
 def test_launches_above_48kb_opt_in():
@@ -110,12 +123,12 @@ def test_larger_layer_counts_shrink_the_walker_block():
         walk.geometry(1000, 21, 2000, 2)
 
 
-def _check_prep_stores(C, nl, n_rf, model):
-    geo = prep.geometry(C, nl, n_rf, model)
+def _check_prep_stores(C, nl, n_rf, model, elem=4):
+    geo = prep.geometry(C, nl, n_rf, model, elem=elem)
     assert geo.threads % lanes.WARP == 0 and geo.threads <= prep.MAX_THREADS
     assert geo.tile in prep.TILES
     assert (geo.blocks - 1) * geo.tile < C <= geo.blocks * geo.tile
-    assert geo.smem == 4 * prep.tile_floats(nl, model) * geo.tile
+    assert geo.smem == elem * prep.tile_floats(nl, model) * geo.tile
     assert geo.smem <= lanes.SMEM_MAX
     rows = {'coefs%d' % s: (nl - 1) * 32 for s in range(n_rf)}
     rows.update({'pack%d' % s: rf.pack_offsets(nl)['rows']
@@ -143,7 +156,9 @@ def test_model_operand_stores_once(C, nl, n_rf):
 @pytest.mark.parametrize('nl', [2, 21, 64])
 @pytest.mark.parametrize('C', [1, 37, 2048, 10237])
 def test_rf_operand_stores_once(C, nl):
-    _check_prep_stores(C, nl, 1, False)
+    # K6's float32 and float64 instances
+    for elem in (4, 8):
+        _check_prep_stores(C, nl, 1, False, elem)
 
 
 def test_prep_tiles_fill_the_card():
@@ -268,14 +283,20 @@ SECULAR_SHAPES = [(21, 1), (21, 17), (21, 64), (60, 64)]
 @pytest.mark.parametrize('C', [1, 7, 2051])
 def test_secular_stores_once_in_whole_chain_warps(C, R, K, nl):
     E = R * K
-    for iwave in (2, 1):
-        geo = swd.geometry(C, R, K, nl, iwave)
+    # the float32 and the float64 instances (4- and 8-byte elements); a
+    # float64 geometry of the float32 one's tile has its store map
+    maps = set()
+    for iwave, elem in ((2, 4), (1, 4), (2, 8), (1, 8)):
+        geo = swd.geometry(C, R, K, nl, iwave, elem)
         assert geo.threads % lanes.WARP == 0
         assert geo.threads <= swd.MAX_THREADS
         assert (geo.blocks - 1) * geo.tile < C <= geo.blocks * geo.tile
-        assert geo.smem == 4 * geo.tile * (swd.chain_floats(nl, R, iwave)
-                                           + 1)
+        assert geo.smem == geo.tile * (elem * swd.chain_floats(nl, R, iwave)
+                                       + 4)
         assert geo.smem <= lanes.SMEM_MAX
+        if (geo.threads, geo.tile) in maps:
+            continue
+        maps.add((geo.threads, geo.tile))
         m = swd.store_map(geo, C, R, K)
         assert m.shape[0] == geo.blocks and m.shape[2] == geo.threads
         assert np.array_equal(np.bincount(m[m >= 0], minlength=C * E),
@@ -316,8 +337,9 @@ def test_secular_shared_bytes_agree_with_the_kernel_and_opt_in():
             for R in (1, 21, 60):
                 assert eval(body, {'nl': nl, 'R': R}) == swd.chain_floats(
                     nl, R, iwave)
-    # the entry points refuse less than the tile's floats and tops
-    assert 'smem < 4 * (long)tile * (floats + 1)' in src
+    # the entry points refuse less than the tile's values and tops, at
+    # the instance's element size
+    assert 'smem < (long)tile * (sizeof(T) * floats + 4)' in src
     # one guarded opt-in serves K4's and K5's launches
     guarded = re.findall(r'if \(smem > 48 \* 1024\) \{\s*cudaError_t e = '
                          r'cudaFuncSetAttribute\(', src)

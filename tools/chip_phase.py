@@ -7,8 +7,12 @@ repeat.
 
 ``--phase b`` runs (b), ``chip_smoke.optimizer_tutorial`` (the
 tutorial configuration through ``MCMC_Optimizer`` with its checks);
-``--phase l`` runs (l), ``chip_smoke.gates_and_tutorial`` (the sampler
-gates and the tutorial scripts).  Each run prints its wall seconds in a
+``--phase d`` runs (d), ``chip_smoke.optimizer_recovery`` (the tutorial
+at 21 chains, schedule S, held to its bands); ``--phase l`` runs (l),
+``chip_smoke.gates_and_tutorial`` (the sampler gates and the tutorial
+scripts); ``--phase m`` runs (m), ``chip_smoke.ring_path`` (the float64
+kernels, the per-chain ring path, a float64 optimizer run) and prints
+its kernel records.  Each run prints its wall seconds in a
 JSON line after the phase's own log.  With ``--pair DIR`` it runs the
 phase in turns in the other tree ``DIR`` (a ``git archive`` of another
 commit: its ``chip_smoke.py`` and package) and in this one, other,
@@ -49,6 +53,11 @@ def run_here(phase):
         t = time.perf_counter()
         if phase == 'b':
             cs.optimizer_tutorial(torch, tmp)
+        elif phase == 'd':
+            cs.optimizer_recovery(torch, tmp)
+        elif phase == 'm':
+            print(json.dumps({'kernels': cs.ring_path(torch, dev, tmp, {})}),
+                  flush=True)
         else:
             cs.gates_and_tutorial(torch, dev, tmp, {})
         torch.cuda.synchronize()
@@ -87,7 +96,7 @@ def run_pairs(phase, other, pairs):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument('--phase', choices=('b', 'l'), required=True)
+    ap.add_argument('--phase', choices=('b', 'd', 'l', 'm'), required=True)
     ap.add_argument('--pair', default=None)
     ap.add_argument('--pairs', type=int, default=1)
     args = ap.parse_args()

@@ -183,6 +183,11 @@ def main():
         if opts.relax:
             raise SystemExit('--relax builds this tree only')
         sys.path.insert(0, os.path.abspath(opts.tree))
+        # that tree's chip_smoke.py: its kernel names and inputs are the
+        # ones of that tree's kernels
+        global cs
+        del sys.modules['chip_smoke']
+        import chip_smoke as cs
 
     import torch
     if not torch.cuda.is_available():

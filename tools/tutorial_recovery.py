@@ -3,6 +3,7 @@ the runs that set ``chip_smoke.py``'s recovery bands (``RECOVERY``).
 
     python3 tools/tutorial_recovery.py --seeds 1 2 3 [--chains 21]
         [--jobs 1] [--schedule 4096 2048] [--no-dof-correction]
+        [--dtype float32|float64] [--ring-path]
         [--out results/tutorial_recovery.json]
 
 Each seed runs as ``chip_smoke.tutorial_run`` does: the tutorial's
@@ -12,7 +13,12 @@ configuration and data (``tutorial/config.ini`` with
 card, 32,768 + 16,384 iterations unless ``--schedule BURNIN MAIN``
 says otherwise, ``maxmodels`` 50,000, its segment pinned at
 ``chip_smoke.TUTORIAL_SEGMENT``, ``gauss_dof_correction`` on unless
-``--no-dof-correction``, and prints its rate, acceptance, forward
+``--no-dof-correction``, at ``--dtype`` (float32 by default; a float64
+run takes the per-chain ring path, as ``MCMC_Optimizer`` picks it), on
+the per-chain ring path at float32 too with ``--ring-path`` (the tool
+builds that run's evaluator itself, ``build_evaluator(...,
+use_batch_swd=False)``: the path of the JAX package's runs off a TPU),
+and prints its rate, acceptance, forward
 rejects, the posterior summary of its main phase (layer-count
 histogram and mode, P(5) + P(6), the medians of sigma_RF, sigma_SWD and
 vp/vs), under ``per_chain`` the per-chain statistics of
@@ -40,12 +46,33 @@ import chip_smoke as cs  # noqa: E402
 from posterior_compare import chain_stats, move_stats  # noqa: E402
 
 
-def tutorial_seed(torch, tmp, seed, chains, schedule=None, dof=True):
+def ring_path_optimizer():
+    """``MCMC_Optimizer`` with its evaluator rebuilt without the batch
+    path (``build_evaluator(..., use_batch_swd=False)``) at its dtype:
+    the per-chain ring path, at float32 too."""
+    from bayhunter_tpu_torch import MCMC_Optimizer
+    from bayhunter_tpu_torch.sampler.evaluator import build_evaluator
+
+    class RingPath(MCMC_Optimizer):
+        def _setup(self, targets, initparams, priors, random_seed, dtype,
+                   device, devices=None):
+            super()._setup(targets, initparams, priors, random_seed, dtype,
+                           device, devices)
+            self.eval_fn = self.sampler.ev = build_evaluator(
+                targets, self.priors, self.initparams, self.maxlayers,
+                self.device, dtype, use_batch_swd=False)
+
+    return RingPath
+
+
+def tutorial_seed(torch, tmp, seed, chains, schedule=None, dof=True,
+                  dtype='float32', ring=False):
     """``chip_smoke.tutorial_run`` of ``seed``, its burn-in and main
-    phase those of ``schedule`` (the tutorial's when None) and
-    ``gauss_dof_correction`` as ``dof`` says; returns (its stats with
-    the schedule, the per-chain statistics of its files and its final
-    states' per-move counters and widths, launches)."""
+    phase those of ``schedule`` (the tutorial's when None),
+    ``gauss_dof_correction`` as ``dof`` says, at ``dtype`` and (``ring``)
+    on the per-chain ring path; returns (its stats with the schedule,
+    the per-chain statistics of its files and its final states'
+    per-move counters and widths, launches)."""
     from bayhunter_tpu_torch import bench_config
     targets, sd = bench_config.tutorial_targets()
     priors, ip = bench_config.tutorial_params()
@@ -54,12 +81,16 @@ def tutorial_seed(torch, tmp, seed, chains, schedule=None, dof=True):
               gauss_dof_correction=dof)
     if schedule is not None:
         ip.update(iter_burnin=schedule[0], iter_main=schedule[1])
-    opt, wall, _, counts = cs.run_optimizer(torch, targets, priors, ip, seed)
+    opt, wall, _, counts = cs.run_optimizer(
+        torch, targets, priors, ip, seed,
+        cls=ring_path_optimizer() if ring else None,
+        dtype=getattr(torch, dtype))
     stats = cs.optimizer_stats(opt, wall)
     st = opt.final_states
     stats.update(seed=seed, sigma_swd_injected=sd,
                  snapshots=cs.check_contract(opt), **cs.recovery_summary(opt))
-    stats.update(schedule=[opt.iter_phase1, opt.iter_phase2],
+    stats.update(schedule=[opt.iter_phase1, opt.iter_phase2], dtype=dtype,
+                 ring_path=not opt.eval_fn.batch,
                  per_chain=chain_stats(opt.savepath, opt.nchains,
                                        opt.maxlayers),
                  moves=move_stats(*(x[:opt.nchains].cpu().numpy() for x in (
@@ -67,14 +98,15 @@ def tutorial_seed(torch, tmp, seed, chains, schedule=None, dof=True):
     return stats, counts
 
 
-def run_seeds(torch, seeds, chains, smi, schedule=None, dof=True):
+def run_seeds(torch, seeds, chains, smi, schedule=None, dof=True,
+              dtype='float32', ring=False):
     """The runs of ``seeds`` in this process, one JSON line each."""
     runs = []
     tmp = tempfile.mkdtemp(prefix='bh_recovery_')
     try:
         for seed in seeds:
             stats, counts = tutorial_seed(torch, tmp, seed, chains,
-                                          schedule, dof)
+                                          schedule, dof, dtype, ring)
             stats['gauss_dof_correction'] = dof
             stats['launches'] = counts
             stats['device'] = smi
@@ -87,7 +119,8 @@ def run_seeds(torch, seeds, chains, smi, schedule=None, dof=True):
     return runs
 
 
-def run_parallel(seeds, chains, jobs, schedule=None, dof=True):
+def run_parallel(seeds, chains, jobs, schedule=None, dof=True,
+                 dtype='float32', ring=False):
     """The runs of ``seeds`` in child processes of this script, at most
     ``jobs`` at once; their JSON lines in the order of ``seeds``."""
     from bayhunter_tpu_torch.ops import _ext
@@ -103,6 +136,7 @@ def run_parallel(seeds, chains, jobs, schedule=None, dof=True):
                 cmd += ['--schedule', str(schedule[0]), str(schedule[1])]
             if not dof:
                 cmd.append('--no-dof-correction')
+            cmd += ['--dtype', dtype] + (['--ring-path'] if ring else [])
             running.append((i, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                 text=True)))
         i, proc = running.pop(0)
@@ -126,6 +160,11 @@ def main():
     ap.add_argument('--no-dof-correction', action='store_true',
                     help='gauss_dof_correction off (a shifted sigma_RF '
                     'posterior: the comparison\'s positive control)')
+    ap.add_argument('--dtype', default='float32',
+                    choices=('float32', 'float64'))
+    ap.add_argument('--ring-path', action='store_true',
+                    help='the per-chain ring path at float32 too (float64 '
+                    'runs take it always)')
     ap.add_argument('--out', default=None)
     args = ap.parse_args()
     import torch
@@ -138,10 +177,10 @@ def main():
     dof = not args.no_dof_correction
     if args.jobs > 1:
         runs = run_parallel(args.seeds, args.chains, args.jobs,
-                            args.schedule, dof)
+                            args.schedule, dof, args.dtype, args.ring_path)
     else:
         runs = run_seeds(torch, args.seeds, args.chains, smi, args.schedule,
-                         dof)
+                         dof, args.dtype, args.ring_path)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, 'w') as f:
